@@ -1,0 +1,230 @@
+"""Shared building blocks (port of ``audioyolo_tpu/models/layers.py``).
+
+Public layouts follow the JAX package; inside the detector the convolutions
+run NCHW, the layout cuDNN takes. Submodules are named after the flax tree
+(``conv``, ``norm``, ``conv3x3``, ``reparam``, ``block0``, ...) so that a flax
+variable path joined with dots is the port's ``state_dict`` key
+(``models/from_jax.py``).
+
+Serving only: BatchNorm is the eval form with running statistics. The JAX
+package's space-to-depth stem and its H=1 middle-row conv slice are exact
+TPU rewrites of a plain convolution, so the port runs the plain one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+IntPair = Union[int, Tuple[int, int]]
+
+
+def _pair(v: IntPair) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)  # type: ignore[return-value]
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over channel axis 1:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return (x - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+
+
+class _ConvParams(nn.Module):
+    """Bare OIHW weight (+ bias): the flax ``conv`` leaf level."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int], bias: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+
+class Conv2d(nn.Module):
+    """Conv with explicit symmetric padding; parameters under ``.conv``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair,
+                 stride: IntPair = 1, padding: IntPair = 0, bias: bool = True):
+        super().__init__()
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.conv = _ConvParams(in_ch, out_ch, _pair(kernel_size), bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.conv.weight, self.conv.bias, self.stride, self.padding)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init matching the JAX package's: glorot-uniform conv kernels
+    (torch xavier_uniform_), conv biases 0.01, BatchNorm at identity."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, _ConvParams):
+                o, i, kh, kw = m.weight.shape
+                bound = math.sqrt(6.0 / ((i + o) * kh * kw))
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.fill_(0.01)
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+
+class ConvNorm(nn.Module):
+    """conv -> BatchNorm -> optional activation (same padding by default)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair, stride: IntPair = 1,
+                 padding: Optional[IntPair] = None, bias: bool = True,
+                 act: Optional[Callable[[torch.Tensor], torch.Tensor]] = leaky_relu):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        if padding is None:
+            padding = (kh // 2, kw // 2)
+        self.conv = Conv2d(in_ch, out_ch, (kh, kw), stride, padding, bias=bias)
+        self.norm = BatchNorm(out_ch)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(self.conv(x))
+        return self.act(x) if self.act is not None else x
+
+
+class RepVGGBlock(nn.Module):
+    """3x3 conv+BN, 1x1 conv+BN and identity BN, summed, then LeakyReLU(0.2);
+    ``deploy=True`` is the folded single biased 3x3 conv (``reparam``).
+    ``branch_act=True`` applies the activation per branch before the sum
+    (the reference's train form; not fold-exact)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: IntPair = 1,
+                 deploy: bool = False, branch_act: bool = False):
+        super().__init__()
+        self.deploy = deploy
+        self.branch_act = branch_act
+        s = _pair(stride)
+        if deploy:
+            self.reparam = Conv2d(in_ch, out_ch, 3, s, 1, bias=True)
+            return
+        self.conv3x3 = ConvNorm(in_ch, out_ch, 3, s, padding=1, bias=False, act=None)
+        self.conv1x1 = ConvNorm(in_ch, out_ch, 1, s, padding=0, bias=False, act=None)
+        if s == (1, 1) and in_ch == out_ch:
+            self.identity = BatchNorm(in_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            return leaky_relu(self.reparam(x))
+        y3, y1 = self.conv3x3(x), self.conv1x1(x)
+        if self.branch_act:
+            y3, y1 = leaky_relu(y3), leaky_relu(y1)
+        y = y3 + y1
+        if hasattr(self, "identity"):
+            y = y + self.identity(x)
+        return leaky_relu(y)
+
+
+class RepBlock(nn.Module):
+    """n chained RepVGG blocks: ``conv1`` then ``block0`` .. ``block{n-2}``."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 2, deploy: bool = False,
+                 branch_act: bool = False):
+        super().__init__()
+        self.n = n
+        kw = dict(deploy=deploy, branch_act=branch_act)
+        self.conv1 = RepVGGBlock(in_ch, out_ch, **kw)
+        for i in range(n - 1):
+            setattr(self, f"block{i}", RepVGGBlock(out_ch, out_ch, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(x)
+        for i in range(self.n - 1):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+def resize_w_bilinear(x: torch.Tensor, out_w: int) -> torch.Tensor:
+    """Bilinear resize of the last (width) axis: half-pixel source
+    coordinates clamped at 0, no antialiasing (``nn.Upsample(mode=
+    "bilinear", align_corners=False)`` restricted to one axis)."""
+    in_w = x.shape[-1]
+    if in_w == out_w:
+        return x
+    scale = in_w / out_w
+    src = torch.clamp_min(
+        (torch.arange(out_w, dtype=torch.float32, device=x.device) + 0.5) * scale - 0.5, 0.0)
+    i0 = torch.floor(src).long()
+    frac = (src - i0.float()).to(x.dtype)
+    i0 = torch.clamp(i0, 0, in_w - 1)
+    i1 = torch.clamp(i0 + 1, 0, in_w - 1)
+    g0 = x.index_select(-1, i0)
+    g1 = x.index_select(-1, i1)
+    return g0 * (1.0 - frac) + g1 * frac
+
+
+def max_pool_same(x: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """k x k max pool, stride 1, same size, padding with -inf (NCHW)."""
+    pad = k // 2
+    x = F.pad(x, (pad, pad, pad, pad), value=float("-inf"))
+    return F.max_pool2d(x, k, stride=1)
+
+
+class BiCModule(nn.Module):
+    """Bi-directional concat fusion: lateral 1x1 on the current and shallower
+    maps, x0.5 / x2 bilinear time rescale, concat, 1x1 out."""
+
+    def __init__(self, c1_ch: int, c0_ch: int, p2_ch: int, features: int, e: float = 0.5):
+        super().__init__()
+        c_h = int(features * e)
+        self.conv_c1 = ConvNorm(c1_ch, c_h, 1)
+        self.conv_c0 = ConvNorm(c0_ch, c_h, 1)
+        self.conv_out = ConvNorm(2 * c_h + p2_ch, features, 1)
+
+    def forward(self, c1: torch.Tensor, c0: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+        c1 = self.conv_c1(c1)
+        c0 = self.conv_c0(c0)
+        c0 = resize_w_bilinear(c0, c0.shape[-1] // 2)
+        p2 = resize_w_bilinear(p2, p2.shape[-1] * 2)
+        return self.conv_out(torch.cat([c1, c0, p2], dim=1))
+
+
+class CSPSPPFModule(nn.Module):
+    """CSP split + chained 5x5 SPPF max pools on the deepest map."""
+
+    def __init__(self, in_ch: int, features: int, e: float = 0.5, pool_k: int = 5):
+        super().__init__()
+        c_h = int(features * e)
+        self.pool_k = pool_k
+        self.conv1 = ConvNorm(in_ch, c_h, 1)
+        self.conv3 = ConvNorm(c_h, c_h, 3)
+        self.conv4 = ConvNorm(c_h, c_h, 1)
+        self.conv2 = ConvNorm(in_ch, c_h, 1)
+        self.conv5 = ConvNorm(4 * c_h, c_h, 1)
+        self.conv6 = ConvNorm(c_h, c_h, 3)
+        self.conv7 = ConvNorm(2 * c_h, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.conv4(self.conv3(self.conv1(x)))
+        y1 = self.conv2(x)
+        p1 = max_pool_same(x1, self.pool_k)
+        p2 = max_pool_same(p1, self.pool_k)
+        p3 = max_pool_same(p2, self.pool_k)
+        z = self.conv6(self.conv5(torch.cat([x1, p1, p2, p3], dim=1)))
+        return self.conv7(torch.cat([z, y1], dim=1))

@@ -1,0 +1,371 @@
+"""Spectral frontend: waveform or phase-grouped frames -> (B, n_mels, T, 2)
+log-mel + MFCC feature image (port of ``audioyolo_tpu/ops/frontend.py``).
+
+The constants (windows, DFT, mel filterbank, DCT) are built on the host in
+float64 numpy exactly as the JAX package builds them. On the device the
+frontend is GEMMs plus elementwise work.
+
+Postures, read from ``tpu_config`` as the JAX package reads them:
+
+- ``frontend_precision: highest`` (the default): every product is a float32
+  ``torch.matmul`` with TF32 off.
+- ``frontend_precision: default`` with ``pallas_frontend: on``: the DFT ->
+  power -> mel stage runs as kernel 1 (``mel_kernel.fused_mel_power``, bf16
+  operands, fp32 sums) on CUDA tensors and as its plain version on CPU
+  tensors, for phase-grouped frames and for the waveform path's frames
+  alike (there with one phase and the window-folded DFT matrix). The
+  resampler and the small DCT product stay float32.
+- ``default`` without the kernel, ``high``, ``bf16`` and ``int8`` are not
+  ported yet and raise ``NotImplementedError`` (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import Config, load_config
+from .mel_kernel import MelKernelFrontend
+from .resample import Resampler
+
+# --------------------------------------------------------------------------
+# Host-side constant builders (float64 -> float32)
+# --------------------------------------------------------------------------
+
+
+def hann_window(n: int, periodic: bool = True, dtype=np.float32) -> np.ndarray:
+    """Raised-cosine window (``periodic=True`` is torch.hann_window's default)."""
+    if n == 1:
+        return np.ones(1, dtype=dtype)
+    denom = n if periodic else n - 1
+    k = np.arange(n, dtype=np.float64)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * k / denom))).astype(dtype)
+
+
+_WINDOW_FNS = {
+    "hann": np.hanning,
+    "hamming": np.hamming,
+    "blackman": np.blackman,
+    "bartlett": np.bartlett,
+    "kaiser": lambda n: np.kaiser(n, 12.0),  # torch.kaiser_window default beta
+}
+
+
+def taper_window(name: str, n: int, periodic: bool = False, dtype=np.float32) -> np.ndarray:
+    """``torch.<name>_window(n, periodic=...)`` equivalent for the input taper."""
+    try:
+        fn = _WINDOW_FNS[name]
+    except KeyError:
+        raise ValueError(
+            f"unsupported taper window '{name}'; supported: {sorted(_WINDOW_FNS)}"
+        ) from None
+    if n == 1:
+        return np.ones(1, dtype=dtype)
+    if periodic:
+        return fn(n + 1)[:n].astype(dtype)
+    return fn(n).astype(dtype)
+
+
+def dft_power_matrix(n_fft: int, window: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """Window-folded real-DFT matrix ``(n_fft, 2*(n_fft//2+1))``:
+    ``frames @ W`` gives ``[Re X_k | Im X_k]`` of the onesided spectrum."""
+    n_freq = n_fft // 2 + 1
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_freq, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    cos = np.cos(ang) * window.astype(np.float64)[:, None]
+    sin = -np.sin(ang) * window.astype(np.float64)[:, None]
+    return np.concatenate([cos, sin], axis=1).astype(dtype)
+
+
+def _hz_to_mel(f: np.ndarray, mel_scale: str) -> np.ndarray:
+    f = np.asarray(f, dtype=np.float64)
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = math.log(6.4) / 27.0
+    mel = f / f_sp
+    return np.where(f >= min_log_hz, min_log_mel + np.log(f / min_log_hz) / logstep, mel)
+
+
+def _mel_to_hz(m: np.ndarray, mel_scale: str) -> np.ndarray:
+    m = np.asarray(m, dtype=np.float64)
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = math.log(6.4) / 27.0
+    freq = f_sp * m
+    return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)), freq)
+
+
+def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
+                   f_max: Optional[float] = None, mel_scale: str = "htk",
+                   norm: Optional[str] = "slaney", dtype=np.float32) -> np.ndarray:
+    """Triangular mel filterbank, shape ``(n_freqs, n_mels)``."""
+    f_max = f_max if f_max is not None else sample_rate / 2.0
+    all_freqs = np.linspace(0.0, sample_rate // 2, n_freqs)
+    m_pts = np.linspace(_hz_to_mel(np.array(f_min), mel_scale),
+                        _hz_to_mel(np.array(f_max), mel_scale), n_mels + 2)
+    f_pts = _mel_to_hz(m_pts, mel_scale)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        enorm = 2.0 / (f_pts[2: n_mels + 2] - f_pts[:n_mels])
+        fb = fb * enorm[None, :]
+    return fb.astype(dtype)
+
+
+def dct_matrix(n_mfcc: int, n_mels: int, ortho: bool = True, dtype=np.float32) -> np.ndarray:
+    """DCT-II basis ``(n_mels, n_mfcc)``; ``mels @ D`` gives cepstra."""
+    n = np.arange(n_mels, dtype=np.float64)[:, None]
+    k = np.arange(n_mfcc, dtype=np.float64)[None, :]
+    d = 2.0 * np.cos(np.pi / n_mels * (n + 0.5) * k)
+    if ortho:
+        d[:, :1] = d[:, :1] / math.sqrt(2.0)
+        d = d * math.sqrt(1.0 / (2.0 * n_mels))
+    return d.astype(dtype)
+
+
+# --------------------------------------------------------------------------
+# Tensor ops
+# --------------------------------------------------------------------------
+
+
+def frame_signal(x: torch.Tensor, n_fft: int, hop: int, center: bool,
+                 pad_mode: str) -> torch.Tensor:
+    """(B, samples) -> (B, n_frames, n_fft)."""
+    if center:
+        pad = n_fft // 2
+        mode = {"reflect": "reflect", "constant": "constant", "replicate": "replicate"}[pad_mode]
+        x = F.pad(x, (pad, pad), mode=mode)
+    return x.unfold(-1, n_fft, hop)
+
+
+def stft_power(x: torch.Tensor, dft_w: torch.Tensor, n_fft: int, hop: int,
+               center: bool = False, pad_mode: str = "reflect",
+               power: float = 2.0) -> torch.Tensor:
+    """(B, samples) -> (B, n_frames, n_freq) power spectrogram (float32 GEMM)."""
+    frames = frame_signal(x.float(), n_fft, hop, center, pad_mode)
+    spec = torch.matmul(frames, dft_w)
+    n_freq = n_fft // 2 + 1
+    p = spec[..., :n_freq] ** 2 + spec[..., n_freq:] ** 2
+    if power == 2.0:
+        return p
+    if power == 1.0:
+        return torch.sqrt(p)
+    return p ** (power / 2.0)
+
+
+def amplitude_to_db(x: torch.Tensor, top_db: Optional[float] = None,
+                    multiplier: float = 10.0, amin: float = 1e-10,
+                    ref: float = 1.0) -> torch.Tensor:
+    """Power -> decibels with an optional per-sample floor ``top_db`` below
+    the maximum over all non-batch axes."""
+    db = multiplier * torch.log10(torch.clamp_min(x, amin))
+    db = db - multiplier * math.log10(max(amin, ref))
+    if top_db is not None:
+        floor = torch.amax(db, dim=tuple(range(1, db.dim())), keepdim=True) - top_db
+        db = torch.maximum(db, floor)
+    return db
+
+
+def standardize_per_channel(x: torch.Tensor, e: float = 1e-5) -> torch.Tensor:
+    """Zero mean, unit (unbiased) std over the trailing two axes."""
+    mu = torch.mean(x, dim=(-2, -1), keepdim=True)
+    n = x.shape[-2] * x.shape[-1]
+    var = torch.sum((x - mu) ** 2, dim=(-2, -1), keepdim=True) / max(n - 1, 1)
+    return (x - mu) / (torch.sqrt(var) + e)
+
+
+# --------------------------------------------------------------------------
+# Composed frontend
+# --------------------------------------------------------------------------
+
+
+def _posture(cfg: Config) -> bool:
+    """True when the frontend's DFT -> power -> mel runs as kernel 1."""
+    tc = cfg.raw.get("tpu_config") or {}
+    prec = str(tc.get("frontend_precision", "highest")).lower()
+    if prec == "highest":
+        return False
+    if prec == "default":
+        if str(tc.get("pallas_frontend", "off")).lower() != "on":
+            raise NotImplementedError(
+                "frontend_precision 'default' runs only through kernel 1 in the "
+                "port; set tpu_config.pallas_frontend: on (ROADMAP A10)")
+        return True
+    if prec in ("high", "bf16", "int8"):
+        raise NotImplementedError(
+            f"frontend_precision '{prec}' is not ported yet (ROADMAP A10)")
+    raise ValueError(f"unknown frontend_precision '{prec}'")
+
+
+class MelBranch(nn.Module):
+    """One MelSpectrogram equivalent (window-folded DFT GEMM + mel GEMM), with
+    torchaudio's MelSpectrogram defaults for missing keys."""
+
+    def __init__(self, mel_cfg: dict, sr_model: int, use_kernel: bool = False):
+        super().__init__()
+        self.n_fft = int(mel_cfg.get("n_fft", 400))
+        self.win_length = int(mel_cfg.get("win_length") or self.n_fft)
+        self.hop = int(mel_cfg.get("hop_length") or self.win_length // 2)
+        self.center = bool(mel_cfg.get("center", True))
+        self.pad_mode = mel_cfg.get("pad_mode", "reflect")
+        self.power = float(mel_cfg.get("power", 2.0))
+        self.n_mels = int(mel_cfg.get("n_mels", 128))
+
+        window = np.zeros(self.n_fft, dtype=np.float64)
+        w = hann_window(self.win_length, periodic=True, dtype=np.float64)
+        off = (self.n_fft - self.win_length) // 2
+        window[off: off + self.win_length] = w
+        dft_w = dft_power_matrix(self.n_fft, window)
+        self.mel_fb_np = mel_filterbank(
+            self.n_fft // 2 + 1, self.n_mels, sr_model,
+            f_min=float(mel_cfg.get("f_min", 0.0)), f_max=mel_cfg.get("f_max"),
+            mel_scale=mel_cfg.get("mel_scale", "htk"), norm=mel_cfg.get("norm"),
+        )
+        self.register_buffer("mel_fb", torch.from_numpy(self.mel_fb_np), persistent=False)
+        self.kernel = None
+        if use_kernel:
+            if self.power != 2.0:
+                raise NotImplementedError("kernel 1 computes power 2 only (ROADMAP A10)")
+            self.kernel = MelKernelFrontend(dft_w[None], self.mel_fb_np)
+        else:
+            self.register_buffer("dft_w", torch.from_numpy(dft_w), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, samples) -> (B, n_frames, n_mels) mel power."""
+        if self.kernel is not None:
+            frames = frame_signal(x.float(), self.n_fft, self.hop, self.center, self.pad_mode)
+            return self.kernel(frames.contiguous()[:, None])[:, 0]
+        p = stft_power(x, self.dft_w, self.n_fft, self.hop, self.center,
+                       self.pad_mode, self.power)
+        return torch.matmul(p, self.mel_fb)
+
+
+class SpectralFrontend(nn.Module):
+    """Waveform at the dataset rate, or phase-grouped frames from
+    :meth:`frame_host`, -> (B, n_mels, n_frames, 2) NHWC feature image.
+
+    Channel 0 is the log-mel image, channel 1 the MFCC image, both through
+    the 80 dB floor and (optionally) standardized per sample and channel.
+    All constants are non-persistent buffers: ``.to(device)`` moves them and
+    a model's ``state_dict`` holds none of them.
+    """
+
+    def __init__(self, config=None):
+        super().__init__()
+        cfg = load_config(config)
+        self.cfg = cfg
+        mel_cfg = cfg.raw["melspectrogram_config"]
+        mfcc_cfg = cfg.raw["mfcc_config"]
+        self.use_kernel = _posture(cfg)
+        self.sr_in = cfg.sample_rate
+        self.sr_model = cfg.new_sample_rate
+        self.resampler = Resampler(self.sr_in, self.sr_model)
+
+        self.mel = MelBranch(mel_cfg, self.sr_model, self.use_kernel)
+        self.n_mels = self.mel.n_mels
+        mk = dict(mfcc_cfg.get("melkwargs") or {})
+        self.shared_mel = mk == dict(mel_cfg)
+        self.mfcc_mel = (self.mel if self.shared_mel
+                         else MelBranch(mk, self.sr_model, self.use_kernel))
+        self.n_mfcc = int(mfcc_cfg["n_mfcc"])
+        self.log_mels = bool(mfcc_cfg.get("log_mels", False))
+        self.register_buffer("dct_m", torch.from_numpy(dct_matrix(
+            self.n_mfcc, self.mfcc_mel.n_mels,
+            ortho=mfcc_cfg.get("norm", "ortho") == "ortho")), persistent=False)
+
+        taper = None
+        if cfg.raw.get("taper_input"):
+            taper = torch.from_numpy(taper_window(
+                cfg.raw.get("taper_window", "hann"), cfg.model_samples, periodic=False))
+        self.register_buffer("taper", taper, persistent=False)
+        self.scale_input = bool(cfg.raw.get("scale_input", True))
+
+        # Fused resample+frame+DFT path for phase-grouped frames: eligible
+        # for non-overlapping frames, no centering or taper, one shared mel
+        # config (the shipped config).
+        self.fused = None
+        self.fused_kernel = None
+        if (self.taper is None and not self.mel.center
+                and self.mel.hop == self.mel.n_fft and self.shared_mel):
+            from .fused_frontend import get_fused_frame_dft
+
+            try:
+                self.fused = get_fused_frame_dft(
+                    self.sr_in, self.sr_model, self.mel.n_fft, self.mel.hop,
+                    self.mel.win_length, cfg.n_frames)
+            except ValueError:  # frame count not phase-divisible, overlapping windows
+                self.fused = None
+        if self.fused is not None:
+            if self.use_kernel:
+                self.fused_kernel = MelKernelFrontend(self.fused.c, self.mel.mel_fb_np)
+            else:
+                self.register_buffer("fused_c", torch.from_numpy(self.fused.c),
+                                     persistent=False)
+
+    def frame_host(self, audio: np.ndarray) -> np.ndarray:
+        """Host framing for the fused path: (B, S) or (B, 1, S) raw audio
+        (float or int16) -> (B, n_ph, n_groups, frame_len), same dtype."""
+        if self.fused is None:
+            raise ValueError("fused frontend path not available for this config")
+        audio = np.asarray(audio)
+        if audio.ndim == 3:
+            audio = audio[:, 0, :]
+        return self.fused.frame_host(audio)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        """``audio``: (B, S) or (B, 1, S) waveform at the dataset rate, or
+        (B, n_ph, n_groups, frame_len) frames from :meth:`frame_host`.
+        int16 input is dequantized as PCM16 (x / 32768)."""
+        if audio.dim() == 4:
+            if self.fused is None:
+                raise ValueError("framed input given but fused path unavailable")
+            if self.fused_kernel is not None:
+                mel_rg = self.fused_kernel(audio.contiguous())
+            else:
+                # project to mel in phase order, then restore time order
+                mel_rg = torch.matmul(
+                    self.fused(audio, self.fused_c, power=self.mel.power, reorder=False),
+                    self.mel.mel_fb)
+            return self._images(self.fused.reorder_frames(mel_rg), None)
+        if audio.dim() == 3:
+            audio = audio[:, 0, :]
+        if not audio.is_floating_point():
+            audio = audio.float() * (1.0 / 32768.0)
+        x = self.resampler(audio.float())
+        if self.taper is not None:
+            x = x * self.taper[None, :]
+        return self._images(self.mel(x), x)
+
+    def _images(self, mel_power: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, T, M) mel power (+ waveform for a non-shared MFCC branch) ->
+        (B, M, T, 2) feature image."""
+        mfcc_mel_power = mel_power if self.shared_mel else self.mfcc_mel(x)
+        if self.log_mels:
+            log_mel = torch.log(mfcc_mel_power + 1e-6)
+        else:
+            log_mel = amplitude_to_db(mfcc_mel_power, top_db=80.0)
+        mfcc = torch.matmul(log_mel, self.dct_m)
+        # the reference's outer AmplitudeToDB(top_db=80) runs on both
+        # branches, the MFCC coefficients included (a power->dB map applied
+        # a second time)
+        mel_img = amplitude_to_db(mel_power, top_db=80.0)
+        mfcc_img = amplitude_to_db(mfcc, top_db=80.0)
+        if self.scale_input:
+            mel_img = standardize_per_channel(mel_img)
+            mfcc_img = standardize_per_channel(mfcc_img)
+        return torch.stack([mel_img.transpose(-1, -2), mfcc_img.transpose(-1, -2)], dim=-1)

@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``audioyolo_tpu_torch``) on one CUDA card.
+
+Run from the root of the repository, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+1. build every kernel under ``audioyolo_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together) and print the seconds taken;
+2. print the card's name and power limit (``nvidia-smi``);
+3. kernel 1 (``fused_mel_power``) against its plain version on the card, at
+   the serving batch (B=32) for int16 and float32 frames and for the waveform
+   path's frames; times against its bound and the bf16 ``torch.matmul`` pair;
+4. kernels 2 and 3 (greedy interval NMS, chunked and row by row) against
+   the plain version, bit for bit, on random, near-threshold and chained
+   intervals at (32, 630);
+5. serving: the shipped model at full width with seeded weights, folded,
+   behind the port's HTTP server; three WAVs (150 s and 7 s at 22 050 Hz,
+   60 s at 16 000 Hz) are POSTed, both kernels must have launched, and the
+   model's predictions on the card must agree with the same model on the CPU;
+   one serving batch's time is broken down (host clock, CUDA events, a
+   profiler trace);
+6. print one JSON line of every kernel's numbers, then the device line.
+
+Exits non-zero, printing no result, without a CUDA card or without the
+package beside this file.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BATCH = 32
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them, HBM3
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+MEL_REL_BOUND = 1e-2   # relative, over |plain| + 1e-3: fp32 order + odd bf16 flip of spec^2
+# card vs CPU predictions, max |diff| / max |value|: the whole path (kernel 1's
+# summation order moves the odd bf16 rounding of spec^2) and the model body on
+# the same features (float32 only). Both sit below what TF32 convolutions read.
+PREDS_REL_BOUND = 1e-4
+BODY_REL_BOUND = 1e-5
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes, peak_ops):
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_build():
+    from audioyolo_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    log(f"[build] {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s: {sorted(logs)}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def phase_card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    log(line)
+    return line
+
+
+def _serving_config():
+    from audioyolo_tpu_torch.config import Config, load_config
+
+    raw = load_config(os.path.join(ROOT, "config", "config.yaml")).to_dict()
+    raw.setdefault("tpu_config", {}).update(frontend_precision="default", pallas_frontend="on")
+    return Config(raw)
+
+
+def phase_mel(dev, card):
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+    from audioyolo_tpu_torch.ops.mel_kernel import fused_mel_power, fused_mel_power_plain
+
+    cfg = _serving_config()
+    fe = SpectralFrontend(cfg).to(dev)
+    mk = fe.fused_kernel
+    rng = np.random.default_rng(0)
+    wav = (rng.standard_normal((BATCH, cfg.clip_samples)) * 0.1).astype(np.float32)
+    wav16 = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    res = {}
+    for name, x_np in (("int16", fe.frame_host(wav16)), ("float32", fe.frame_host(wav))):
+        x = torch.from_numpy(x_np).to(dev)
+        c = mk.c_i16 if x.dtype == torch.int16 else mk.c
+        out = fused_mel_power(x, c, mk.mel2)
+        ref = fused_mel_power_plain(x, c, mk.mel2)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        rel = (err / (ref.abs() + 1e-3)).max().item()
+        b, r, g, f = x.shape
+        k2 = 2 * fe.fused.n_freq
+        assert out.shape == (b, r, g, 32) and torch.isfinite(out).all()
+        assert rel < MEL_REL_BOUND, f"kernel 1 ({name}) rel err {rel:.3e} >= {MEL_REL_BOUND}"
+        ms = time_ms(lambda: fused_mel_power(x, c, mk.mel2))
+        plain_ms = time_ms(lambda: fused_mel_power_plain(x, c, mk.mel2), iters=5)
+        cb = c[:, :f, :].contiguous()
+
+        def library():  # cuBLAS bf16: one (B*G, F) x (F, 2F') GEMM per phase, square, mel GEMM
+            spec = torch.einsum("brgf,rfk->brgk", x.to(torch.bfloat16), cb)
+            return torch.matmul(spec * spec, mk.mel2)
+
+        lib_ms = time_ms(library)
+        flops = 2 * b * r * g * (f * k2 + k2 * 32)
+        nbytes = x.numel() * x.element_size() + r * f * k2 * 2 + k2 * 32 * 2 + out.numel() * 4
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+        res[name] = dict(max_abs_err=err.max().item(), max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[kernel 1 framed {name} {tuple(x.shape)}] max_abs_err {err.max().item():.3e} "
+            f"max_rel_err {rel:.3e} (bound {MEL_REL_BOUND}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bf16 matmul pair {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s [{card}]")
+        # a ragged batch: 3 clips = 360 rows, the last CTA's rows partly masked
+        out3 = fused_mel_power(x[:3].contiguous(), c, mk.mel2)
+        ref3 = fused_mel_power_plain(x[:3], c, mk.mel2)
+        rel3 = ((out3 - ref3).abs() / (ref3.abs() + 1e-3)).max().item()
+        assert rel3 < MEL_REL_BOUND, f"kernel 1 ({name}, B=3) rel err {rel3:.3e}"
+        log(f"[kernel 1 framed {name} B=3] max_rel_err {rel3:.3e}")
+        del x, out, ref
+
+    # the waveform path's frames: one phase, window-folded DFT, F = n_fft
+    from audioyolo_tpu_torch.ops.frontend import frame_signal
+
+    xw = torch.from_numpy(wav).to(dev)
+    frames = frame_signal(fe.resampler(xw), fe.mel.n_fft, fe.mel.hop, False, "reflect")
+    frames = frames.contiguous()[:, None]
+    wk = fe.mel.kernel
+    out = fused_mel_power(frames, wk.c, wk.mel2)
+    ref = fused_mel_power_plain(frames, wk.c, wk.mel2)
+    rel = ((out - ref).abs() / (ref.abs() + 1e-3)).max().item()
+    assert rel < MEL_REL_BOUND, f"kernel 1 (waveform frames) rel err {rel:.3e}"
+    ms = time_ms(lambda: fused_mel_power(frames, wk.c, wk.mel2))
+    log(f"[kernel 1 waveform frames {tuple(frames.shape)}] max_rel_err {rel:.3e} "
+        f"kernel {ms:.4f} ms [{card}]")
+    return res
+
+
+def _near_threshold(thr, n):
+    """Pairs [0, 1] and [a, b] whose float32 IoU is one ulp below, on and one
+    ulp above ``thr``, repeated to ``n`` intervals."""
+    import numpy as np
+
+    f32 = np.float32
+    t32 = f32(thr)
+    steps = np.arange(-300, 300, dtype=np.int32)
+    a = (f32(0.5).view(np.int32) + steps).view(f32)[:, None]
+    b = (f32(0.5 / thr).view(np.int32) + steps).view(f32)[None, :]
+    inter = np.maximum(np.minimum(f32(1), b) - np.maximum(f32(0), a), f32(0))
+    iou = inter / np.maximum(f32(1) + np.maximum(b - a, f32(0)) - inter, f32(1e-12))
+    x1, x2 = [], []
+    for target in (np.nextafter(t32, f32(0)), t32, np.nextafter(t32, f32(1))):
+        hit = np.argwhere(iou == target)
+        assert hit.size, f"no interval pair at IoU {target!r}"
+        x1 += [0.0, float(a[hit[0, 0], 0])]
+        x2 += [1.0, float(b[0, hit[0, 1]])]
+    reps = n // len(x1) + 1
+    return np.array(x1 * reps, f32)[:n], np.array(x2 * reps, f32)[:n]
+
+
+def phase_nms(dev, card):
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.ops.nms_kernel import (greedy_suppress_blocked,
+                                                    greedy_suppress_rows,
+                                                    greedy_suppress_unblocked)
+
+    k = 630
+    rng = np.random.default_rng(1)
+    c = rng.uniform(0, 60, (BATCH, k)).astype(np.float32)
+    w = rng.uniform(0.2, 20, (BATCH, k)).astype(np.float32)
+    cases = {"random": (np.clip(c - w / 2, 0, 60), np.clip(c + w / 2, 0, 60))}
+    chain = np.arange(k, dtype=np.float32) * np.float32(0.6)
+    cases["chain"] = (np.tile(chain, (BATCH, 1)), np.tile(chain + np.float32(1), (BATCH, 1)))
+    x1n, x2n = cases["random"][0].copy(), cases["random"][1].copy()
+    for arr, value, share in ((x1n, np.nan, 0.05), (x2n, np.inf, 0.03), (x1n, -np.inf, 0.03),
+                              (x2n, np.nan, 0.02)):
+        arr[rng.random(arr.shape) < share] = value
+    cases["non-finite"] = (x1n, x2n)
+    checked, max_err = 0, 0
+    for thr in (0.1, 0.45):
+        near = _near_threshold(thr, k)
+        cases_t = dict(cases, near=(np.tile(near[0], (BATCH, 1)), np.tile(near[1], (BATCH, 1))))
+        for name, (x1n, x2n) in cases_t.items():
+            x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
+            ref = greedy_suppress_rows(x1, x2, thr)
+            for fn in (greedy_suppress_blocked, greedy_suppress_unblocked):
+                got = fn(x1, x2, thr)
+                torch.cuda.synchronize()
+                max_err = max(max_err, int((got.to(torch.int8) - ref.to(torch.int8)).abs().max()))
+                assert torch.equal(got, ref), f"{fn.__name__} differs from plain ({name}, {thr})"
+                checked += 1
+    log(f"[kernels 2, 3] bit-identical to the plain version in {checked} cases "
+        f"(random, near-threshold +-1 ulp, chain, NaN and inf bounds; thresholds 0.1 "
+        f"and 0.45; {BATCH}x{k})")
+
+    x1n, x2n = cases["random"]
+    x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
+    keep = greedy_suppress_rows(x1, x2, 0.1)
+    # work this data needs: each kept row's IoU with every later column,
+    # ~10 fp32 operations each (min, max, 3 add/sub, 2 max, div, compare, and)
+    kept_idx = torch.nonzero(keep)[:, 1]
+    flops = 10 * int((k - 1 - kept_idx).sum().item())
+    nbytes = 2 * x1.numel() * 4 + keep.numel()
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32)
+    plain_ms = time_ms(lambda: greedy_suppress_rows(x1, x2, 0.1), iters=3, warmup=1)
+    res = {}
+    for fn in (greedy_suppress_blocked, greedy_suppress_unblocked):
+        ms = time_ms(lambda: fn(x1, x2, 0.1), iters=50)
+        res[fn.__name__] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, library_ms=None,
+                                bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[{fn.__name__} {BATCH}x{k}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}; the serial chain and the launch "
+            f"are what bound it) [{card}]")
+    return res
+
+
+def _randomize_bn(sd, gen):
+    import torch
+
+    for key in list(sd):
+        if key.endswith("running_var"):
+            p = key[: -len("running_var")]
+            sd[key] = torch.rand(sd[key].shape, generator=gen) + 0.5
+            sd[p + "running_mean"] = torch.randn(sd[key].shape, generator=gen) * 0.1
+            sd[p + "weight"] = torch.rand(sd[key].shape, generator=gen) * 0.8 + 0.6
+            sd[p + "bias"] = torch.randn(sd[key].shape, generator=gen) * 0.1
+    return sd
+
+
+def _wav_bytes(path, seconds, rate, seed):
+    import numpy as np
+
+    from audioyolo_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    t = np.arange(n) / rate
+    x = 0.01 * rng.standard_normal(n)
+    for start in range(0, int(seconds), 10):
+        m = (t >= start + 2) & (t < start + 5)
+        x[m] += 0.4 * np.sin(2 * np.pi * (440 if (start // 10) % 2 else 1200) * t[m])
+    write_wav(path, x.astype(np.float32), rate)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _breakdown(infer_fn, fe, cfg, dev, card):
+    """Where one serving batch (B=32 framed int16 clips) spends its time:
+    host stages on the host clock, the forward on CUDA events, and the
+    device's kernels from a profiler trace of one call."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    clips = np.clip(rng.standard_normal((BATCH, cfg.clip_samples)) * 3000,
+                    -32768, 32767).astype(np.int16)
+    t0 = time.perf_counter()
+    framed = fe.frame_host(clips)
+    t1 = time.perf_counter()
+    x = torch.from_numpy(framed).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = infer_fn(x)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out.cpu()
+    t4 = time.perf_counter()
+    fwd_ms = time_ms(lambda: infer_fn(x), iters=10)
+    log(f"[breakdown B={BATCH}] host framing {(t1 - t0) * 1e3:.1f} ms, host->device "
+        f"{(t2 - t1) * 1e3:.1f} ms ({x.numel() * 2 / 1e6:.0f} MB int16), forward+NMS "
+        f"{(t3 - t2) * 1e3:.1f} ms wall / {fwd_ms:.3f} ms on CUDA events, device->host "
+        f"{(t4 - t3) * 1e3:.2f} ms; {BATCH * cfg.sample_duration / fwd_ms * 1e3:.0f} audio-s/s "
+        f"device-side [{card}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        infer_fn(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    rows = []
+    for ev in prof.key_averages():  # device-side events: the kernels and copies
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"[breakdown] profiled call: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms of kernels "
+        f"(device busy {busy_ms / wall_ms:.1%} of the call, profiler on)")
+    for dev_us, count, key in rows[:12]:
+        log(f"[breakdown]   {dev_us / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def phase_serving(dev, card):
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import serve
+    from audioyolo_tpu_torch.device import set_fp32_posture
+    from audioyolo_tpu_torch.infer import make_inference_fn
+    from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+
+    cfg = _serving_config()
+    cmap = os.path.join(ROOT, "idx2class_mapping", "class_map.json")
+    gen = torch.Generator().manual_seed(0)
+    sd = _randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen).state_dict(), gen)
+    t0 = time.perf_counter()
+    state = serve.build_app_state(cfg, state_dict=sd, class_map_path=cmap,
+                                  batch_size=BATCH, device=dev)
+    infer_fn = state["infer_fn"]
+    fe = infer_fn.model.frontend
+    # warm-up outside the counted run: both input paths once
+    zf = torch.zeros((BATCH, fe.fused.n_ph, fe.fused.n_groups, fe.fused.frame_len),
+                     dtype=torch.int16, device=dev)
+    infer_fn(zf)
+    infer_fn(torch.zeros((BATCH, 1, cfg.clip_samples), device=dev))
+    torch.cuda.synchronize()
+    log(f"[serving] model built, folded and warmed up in {time.perf_counter() - t0:.1f} s")
+
+    # the predictions on the card (kernels) against the same model on the CPU:
+    # the whole path from frames, and the body alone on the CPU's features;
+    # each also with TF32 allowed, to show that the bounds would catch it
+    rng = np.random.default_rng(2)
+    wav16 = np.clip(rng.standard_normal((2, cfg.clip_samples)) * 3000, -32768, 32767).astype(np.int16)
+    framed = torch.from_numpy(fe.frame_host(wav16))
+    cpu_fn = make_inference_fn(AudioDetectionModel.from_config(cfg, 2, deploy=True),
+                               fold_repvgg(sd), keep_k=128, device="cpu")
+
+    def rel(a, ref):
+        return ((a - ref).abs().max() / ref.abs().max()).item()
+
+    with torch.inference_mode():
+        p_cpu = cpu_fn.model(framed, combine_scales=True)
+        feats = cpu_fn.model.frontend(framed)
+        b_cpu = cpu_fn.model(features=feats, combine_scales=True)
+        runs = {}
+        for posture in ("fp32", "tf32"):
+            torch.backends.cudnn.allow_tf32 = posture == "tf32"
+            torch.backends.cuda.matmul.allow_tf32 = posture == "tf32"
+            try:
+                runs[posture] = (infer_fn.model(framed.to(dev), combine_scales=True).cpu(),
+                                 infer_fn.model(features=feats.to(dev), combine_scales=True).cpu())
+            finally:
+                set_fp32_posture()
+    p_card, b_card = runs["fp32"]
+    d, d_body = rel(p_card, p_cpu), rel(b_card, b_cpu)
+    packed_card, packed_cpu = infer_fn(framed.to(dev)).cpu(), cpu_fn(framed)
+    agree = (packed_card[..., 5] == packed_cpu[..., 5]).float().mean().item()
+    log(f"[serving] card vs CPU predictions, max |diff| / max |value|: whole path {d:.3e} "
+        f"(bound {PREDS_REL_BOUND}; TF32 allowed: {rel(runs['tf32'][0], p_cpu):.3e}), body "
+        f"on the same features {d_body:.3e} (bound {BODY_REL_BOUND}; TF32 allowed: "
+        f"{rel(runs['tf32'][1], b_cpu):.3e}); packed valid-flag agreement {agree:.4f}")
+    assert p_card.shape == (2, cfg.total_proposals, 5) and torch.isfinite(p_card).all()
+    assert d < PREDS_REL_BOUND, f"card vs CPU predictions differ by {d:.3e} (relative)"
+    assert d_body < BODY_REL_BOUND, f"card vs CPU body differs by {d_body:.3e} (relative)"
+
+    _breakdown(infer_fn, fe, cfg, dev, card)
+
+    httpd = serve.serve(state, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    classes = set(state["idx2class"].values())
+    counts = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            requests = [("150 s @ 22050 Hz, framed", 150, 22050, 10),
+                        ("7 s @ 22050 Hz, one padded clip", 7, 22050, 11),
+                        ("60 s @ 16000 Hz, resampled", 60, 16000, 12)]
+            bodies = [(name, sec, _wav_bytes(os.path.join(tmp, f"r{i}.wav"), sec, rate, seed))
+                      for i, (name, sec, rate, seed) in enumerate(requests)]
+            with urllib.request.urlopen(url + "/health", timeout=60) as r:
+                assert json.loads(r.read()) == {"status": "ok"}
+            mel_kernel.fused_mel_power.launches = 0
+            nms_kernel.greedy_suppress_blocked.launches = 0
+            nms_kernel.greedy_suppress_unblocked.launches = 0
+            for name, sec, body in bodies:
+                t0 = time.perf_counter()
+                req = urllib.request.Request(url + "/detect", data=body, method="POST")
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, out = r.status, json.loads(r.read())
+                dt = time.perf_counter() - t0
+                assert status == 200 and set(out) == {"events", "rows"}, out
+                for row in out["rows"]:
+                    assert row["class"] in classes and 0.0 <= row["confidence"] <= 1.0
+                    assert 0.0 <= row["start"] <= row["end"] <= sec + 60.0
+                for a, b in zip(out["events"], out["events"][1:]):
+                    assert a["class"] != b["class"], "events must be RLE-merged"
+                log(f"[serving] {name}: 200, {len(out['rows'])} rows, {len(out['events'])} "
+                    f"events, {dt * 1e3:.1f} ms, {sec / dt:.1f} audio-s/s [{card}]")
+            counts = {
+                "fused_mel_power": mel_kernel.fused_mel_power.launches,
+                "greedy_suppress_blocked": nms_kernel.greedy_suppress_blocked.launches,
+                "greedy_suppress_unblocked": nms_kernel.greedy_suppress_unblocked.launches,
+            }
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    log(f"[serving] kernel launches during the three requests: {counts}")
+    for name in ("fused_mel_power", "greedy_suppress_blocked"):
+        assert counts[name] > 0, f"{name} was not launched on the serving path"
+    return counts
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import audioyolo_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 2
+    from audioyolo_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    phase_build()
+    card = phase_card()
+    mel = phase_mel(dev, card)
+    nms = phase_nms(dev, card)
+    counts = phase_serving(dev, card)
+
+    src = "audioyolo_tpu_torch/csrc/"
+    kernels = [
+        dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
+             replaces="audioyolo_tpu/ops/pallas_frontend.py:64",
+             launches=counts["fused_mel_power"],
+             **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}),
+        dict(name="greedy_suppress_blocked", route="cuda", source=src + "interval_nms.cu",
+             replaces="audioyolo_tpu/ops/pallas_nms.py:172",
+             launches=counts["greedy_suppress_blocked"], **nms["greedy_suppress_blocked"]),
+        dict(name="greedy_suppress_unblocked", route="cuda", source=src + "interval_nms.cu",
+             replaces="audioyolo_tpu/ops/pallas_nms.py:61",
+             launches=counts["greedy_suppress_unblocked"], **nms["greedy_suppress_unblocked"]),
+    ]
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

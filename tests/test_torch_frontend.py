@@ -1,0 +1,200 @@
+"""The PyTorch port's frontend against the JAX package's, on the CPU.
+
+Host constants must be bit-equal; the feature image must match
+``SpectralFrontend.__call__`` at ``frontend_precision: highest`` within the
+bounds of ``tests/test_fused_frontend.py::_compare_images``; and kernel 1's
+plain version must match the Pallas kernel run in interpret mode."""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audioyolo_tpu.config import Config as JConfig, load_config as jload_config
+from audioyolo_tpu.ops import frontend as jfe
+from audioyolo_tpu.ops import resample as jrs
+from audioyolo_tpu.ops.fused_frontend import get_fused_frame_dft as jfused
+from audioyolo_tpu.ops.pallas_frontend import PallasMelFrontend
+
+from audioyolo_tpu_torch.config import Config, load_config
+from audioyolo_tpu_torch.ops import frontend as tfe
+from audioyolo_tpu_torch.ops import resample as trs
+from audioyolo_tpu_torch.ops.fused_frontend import get_fused_frame_dft as tfused
+from audioyolo_tpu_torch.ops.mel_kernel import MelKernelFrontend, fused_mel_power_plain
+
+
+@pytest.fixture(scope="module")
+def full_raw():
+    return jload_config("config/config.yaml").to_dict()
+
+
+@pytest.fixture(scope="module")
+def jax_full(full_raw):
+    """The JAX frontend on the shipped config, and its Pallas constants."""
+    jf = jfe.SpectralFrontend(JConfig(copy.deepcopy(full_raw)))
+    return jf, PallasMelFrontend(jf.fused, jf.mel.mel_fb_np)
+
+
+def test_window_and_dft_constants():
+    for n in (1, 200, 1000):
+        for periodic in (True, False):
+            np.testing.assert_array_equal(tfe.hann_window(n, periodic), jfe.hann_window(n, periodic))
+    for name in ("hann", "hamming", "blackman", "bartlett", "kaiser"):
+        for periodic in (True, False):
+            np.testing.assert_array_equal(tfe.taper_window(name, 64, periodic),
+                                          jfe.taper_window(name, 64, periodic))
+    w = jfe.hann_window(1000, True, np.float64)
+    np.testing.assert_array_equal(tfe.dft_power_matrix(1000, w), jfe.dft_power_matrix(1000, w))
+
+
+@pytest.mark.parametrize("scale", ["htk", "slaney"])
+def test_mel_filterbank_constants(scale):
+    for norm in ("slaney", None):
+        for sr, nf in ((16000, 501), (8000, 101)):
+            np.testing.assert_array_equal(
+                tfe.mel_filterbank(nf, 32, sr, mel_scale=scale, norm=norm),
+                jfe.mel_filterbank(nf, 32, sr, mel_scale=scale, norm=norm))
+
+
+def test_dct_and_sinc_constants():
+    for ortho in (True, False):
+        np.testing.assert_array_equal(tfe.dct_matrix(32, 32, ortho), jfe.dct_matrix(32, 32, ortho))
+    for pair in ((22050, 16000), (16000, 22050), (8000, 16000), (44100, 16000)):
+        k_t, w_t = trs.sinc_resample_kernel(*pair)
+        k_j, w_j = jrs.sinc_resample_kernel(*pair)
+        assert w_t == w_j
+        np.testing.assert_array_equal(k_t, k_j)
+
+
+@pytest.mark.parametrize("pair", [(22050, 16000), (16000, 22050), (8000, 16000)])
+def test_resampler_matches_jax(pair):
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((2, 1, 7 * pair[0] // 5)) * 0.1).astype(np.float32)
+    ref = np.asarray(jrs.Resampler(*pair)(jnp.asarray(x)))
+    out = trs.Resampler(*pair)(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["full", "tiny"])
+def test_fused_frame_dft_constants(which, full_raw, tiny_cfg):
+    raw = full_raw if which == "full" else tiny_cfg.to_dict()
+    cfg = Config(raw)
+    mel = raw["melspectrogram_config"]
+    args = (cfg.sample_rate, cfg.new_sample_rate, mel["n_fft"], mel["hop_length"],
+            mel["win_length"] or mel["n_fft"], cfg.n_frames)
+    t, j = tfused(*args), jfused(*args)
+    assert (t.n_ph, t.span, t.width, t.frame_len, t.n_groups) == \
+        (j.n_ph, j.span, j.width, j.frame_len, j.n_groups)
+    np.testing.assert_array_equal(t.offsets, j.offsets)
+    np.testing.assert_array_equal(t.c, j.c)
+    rng = np.random.default_rng(5)
+    wav = (rng.standard_normal((2, cfg.clip_samples)) * 3000).astype(np.int16)
+    for x in (wav, wav.astype(np.float32) / 32768.0):
+        np.testing.assert_array_equal(t.frame_host(x), j.frame_host(x))
+
+
+def test_mel_kernel_constants(jax_full):
+    jf, pm = jax_full
+    mk = MelKernelFrontend(jf.fused.c, jf.mel.mel_fb_np)
+    r, f, k2 = jf.fused.c.shape
+    assert tuple(mk.c.shape) == (r, 1792, 1024) and tuple(mk.mel2.shape) == (1024, 32)
+    for ours, theirs in ((mk.c, pm.c), (mk.c_i16, pm.c_i16)):
+        np.testing.assert_array_equal(ours[:, :f, :k2].float().numpy(),
+                                      np.asarray(theirs, np.float32))
+        assert not ours[:, f:].any() and not ours[:, :, k2:].any()
+    np.testing.assert_array_equal(mk.mel2[:k2].float().numpy(), np.asarray(pm.mel2, np.float32))
+    assert not mk.mel2[k2:].any()
+
+
+def _images_close(ours, ref):
+    """``_compare_images`` bounds: mel channel strict, MFCC channel strict away
+    from the double-dB discontinuity."""
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours[..., 0], ref[..., 0], atol=1e-4, rtol=1e-4)
+    d = np.abs(ours[..., 1] - ref[..., 1])
+    assert (d > 1e-3).mean() < 2e-3, (d.max(), (d > 1e-3).mean())
+
+
+@pytest.mark.parametrize("which", ["tiny", "full"])
+def test_image_matches_jax_highest(which, full_raw, tiny_cfg):
+    raw = full_raw if which == "full" else tiny_cfg.to_dict()
+    jf = jfe.SpectralFrontend(JConfig(copy.deepcopy(raw)))
+    tf = tfe.SpectralFrontend(Config(copy.deepcopy(raw)))
+    assert tf.fused.n_ph == (8 if which == "full" else 1)
+    b = 1 if which == "full" else 2
+    rng = np.random.default_rng(6)
+    wav = (rng.standard_normal((b, jf.cfg.clip_samples)) * 0.1).astype(np.float32)
+    wav16 = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    for x in (wav, wav16):
+        ref = np.asarray(jf(jnp.asarray(x)))
+        with torch.no_grad():
+            _images_close(tf(torch.from_numpy(x)).numpy(), ref)
+            _images_close(tf(torch.from_numpy(tf.frame_host(x))).numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_plain_mel_matches_pallas_interpret(dtype, jax_full):
+    """Full shapes, B=1. Both sides round x, C, spec^2 and [M; M] to bf16 at
+    the same points; the bound is that of test_pallas_mel_kernel_matches_xla
+    (rel < 2e-2 with a 1e-3 floor). Observed max rel ~8e-4: fp32 sums taken
+    in another order flip the odd bf16 rounding of spec^2."""
+    jf, pm = jax_full
+    mk = MelKernelFrontend(jf.fused.c, jf.mel.mel_fb_np)
+    rng = np.random.default_rng(7)
+    wav = (rng.standard_normal((1, jf.cfg.clip_samples)) * 0.1).astype(np.float32)
+    if dtype == "int16":
+        wav = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    framed = jf.frame_host(wav)
+    ref = np.asarray(pm(jnp.asarray(framed), interpret=True))
+    with torch.no_grad():
+        out = mk(torch.from_numpy(framed)).numpy()
+        c = mk.c_i16 if dtype == "int16" else mk.c
+        np.testing.assert_array_equal(fused_mel_power_plain(torch.from_numpy(framed), c, mk.mel2).numpy(), out)
+    assert out.shape == ref.shape == (1, 8, 120, 32)
+    rel = np.abs(out - ref) / (np.abs(ref) + 1e-3)
+    print(f"plain vs Pallas interpret ({dtype}): max rel {rel.max():.3e}")
+    assert rel.max() < 2e-2, rel.max()
+
+
+@pytest.mark.parametrize("prec", ["bf16", "int8", "high"])
+def test_unported_postures_raise(prec, tiny_cfg):
+    raw = tiny_cfg.to_dict()
+    raw["tpu_config"]["frontend_precision"] = prec
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfe.SpectralFrontend(Config(raw))
+
+
+def test_default_posture_runs_kernel_plain_version_on_cpu(tiny_cfg):
+    """``default`` + ``pallas_frontend: on``: both the framed and the waveform
+    path go through kernel 1's wrapper (its plain version on the CPU) and
+    stay close to the float32 posture."""
+    raw = tiny_cfg.to_dict()
+    raw["tpu_config"].update(frontend_precision="default", pallas_frontend="on")
+    fe16 = tfe.SpectralFrontend(Config(raw))
+    fe32 = tfe.SpectralFrontend(load_config(tiny_cfg.to_dict()))
+    assert fe16.fused_kernel is not None and fe16.mel.kernel is not None
+    rng = np.random.default_rng(8)
+    wav = torch.from_numpy((rng.standard_normal((2, tiny_cfg.clip_samples)) * 0.1).astype(np.float32))
+    with torch.no_grad():
+        a, b = fe16(wav), fe32(wav)
+        framed = fe16(torch.from_numpy(fe16.frame_host(wav.numpy())))
+    assert torch.isfinite(a).all() and (a - b).abs().mean() < 0.05
+    np.testing.assert_allclose(framed.numpy(), a.numpy(), atol=1e-5)
+    raw["tpu_config"]["pallas_frontend"] = "off"
+    with pytest.raises(NotImplementedError):
+        tfe.SpectralFrontend(Config(raw))
+
+
+def test_kernel_posture_rejects_other_mel_widths(tiny_cfg):
+    """Kernel 1 computes 32 mel bands; another width fails at construction,
+    not at the first call on the card."""
+    raw = tiny_cfg.to_dict()
+    raw["tpu_config"].update(frontend_precision="default", pallas_frontend="on")
+    raw["melspectrogram_config"]["n_mels"] = 16
+    raw["mfcc_config"]["melkwargs"]["n_mels"] = 16
+    with pytest.raises(ValueError, match="32 mel bands"):
+        tfe.SpectralFrontend(Config(raw))
