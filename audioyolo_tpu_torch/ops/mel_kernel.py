@@ -2,14 +2,17 @@
 
 Port of ``audioyolo_tpu/ops/pallas_frontend.py`` (``fused_mel_power`` and the
 host constants of ``PallasMelFrontend``). The kernel is hand-written CUDA for
-Hopper (``csrc/fused_mel_power.cu``); its plain PyTorch version sits beside
-it with the same two bf16 rounding points:
+Hopper (``csrc/fused_mel_power.cu``) in two passes, each with its plain
+PyTorch version beside it:
 
-    spec = bf16(x) @ bf16(C_r)          fp32 accumulation
-    mel  = bf16(spec * spec) @ bf16([M; M])
+    xs   = bf16(x), phase-major (R, B*G, Fp), zero-padded      stage_frames
+    spec = xs @ C_r^T                    fp32 accumulation     mel_power_staged
+    mel  = bf16(spec * spec) @ [M; M]^T  fp32 accumulation
 
-``fused_mel_power`` launches the kernel for a CUDA tensor and runs the plain
-version only for a CPU tensor. ``fused_mel_power.launches`` counts launches.
+The constants are K-major: ``ct`` = C_r^T (R, Np, Fp) and ``mel2t`` =
+[M; M]^T (32, Np), bf16, zero-padded. ``fused_mel_power`` runs both passes
+(the kernels for a CUDA tensor, the plain versions only for a CPU tensor);
+``fused_mel_power.launches`` counts its calls that launched the kernels.
 """
 
 from __future__ import annotations
@@ -18,71 +21,144 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import build
 
-N_MELS = 32  # the kernel's output width (NMEL in csrc/fused_mel_power.cu)
-TILE = 64    # C and [M; M] are zero-padded to multiples of this
+N_MELS = 32    # the kernel's output width (NMEL in csrc/fused_mel_power.cu)
+K_TILE = 64    # frames and C^T are zero-padded along K (samples) to a multiple of this
+N_TILE = 256   # C^T and [M; M]^T are zero-padded along N (spectrum) to a multiple of this
+MAX_NP = 1024  # the kernel holds [M; M]^T whole in shared memory
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def fused_mel_power_plain(framed: torch.Tensor, c: torch.Tensor,
-                          mel2: torch.Tensor) -> torch.Tensor:
+def stage_frames_plain(framed: torch.Tensor, fp: int) -> torch.Tensor:
+    """(B, R, G, F) float32/int16 frames -> (R, B*G, fp) bf16, rounded as
+    ``x.astype(bf16)``, phase-major, zero-padded from F to ``fp``."""
+    b, r, g, f = framed.shape
+    xs = framed.float().to(torch.bfloat16).permute(1, 0, 2, 3).reshape(r, b * g, f)
+    return F.pad(xs, (0, fp - f))
+
+
+def mel_power_staged_plain(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
+                           b: int, g: int) -> torch.Tensor:
+    """Plain version of the main pass: ``xs`` (R, b*g, Fp) bf16, ``ct`` (R,
+    Np, Fp) bf16, ``mel2t`` (n_mels, Np) bf16 -> (b, R, g, n_mels) fp32."""
+    spec = torch.matmul(xs.float(), ct.float().transpose(1, 2))
+    sq = (spec * spec).to(torch.bfloat16).float()
+    mel = torch.matmul(sq, mel2t.float().t())
+    return mel.reshape(xs.shape[0], b, g, -1).permute(1, 0, 2, 3).contiguous()
+
+
+def fused_mel_power_plain(framed: torch.Tensor, ct: torch.Tensor,
+                          mel2t: torch.Tensor) -> torch.Tensor:
     """Plain version: bf16-rounded operands, fp32 products and sums.
 
-    ``framed`` (B, R, G, F) float32 or int16; ``c`` (R, Fp, Np) bf16 with
-    ``Fp >= F``; ``mel2`` (Np, n_mels) bf16. Returns (B, R, G, n_mels) fp32.
+    ``framed`` (B, R, G, F) float32 or int16; ``ct`` (R, Np, Fp) bf16 with
+    ``Fp >= F``; ``mel2t`` (n_mels, Np) bf16. Returns (B, R, G, n_mels) fp32.
     """
-    f = framed.shape[-1]
-    x = framed.float().to(torch.bfloat16).float()
-    spec = torch.matmul(x, c[:, :f].float().unsqueeze(0))
-    sq = (spec * spec).to(torch.bfloat16).float()
-    return torch.matmul(sq, mel2.float())
+    b, _, g, _ = framed.shape
+    return mel_power_staged_plain(stage_frames_plain(framed, ct.shape[-1]), ct, mel2t, b, g)
 
 
-def fused_mel_power(framed: torch.Tensor, c: torch.Tensor,
-                    mel2: torch.Tensor) -> torch.Tensor:
-    """(B, R, G, F) frames -> (B, R, G, 32) mel power in phase order.
+def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {device}")
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. Arguments as in :func:`fused_mel_power_plain`.
-    """
-    if not framed.is_cuda:
-        return fused_mel_power_plain(framed, c, mel2)
+
+def _check_frames(framed: torch.Tensor, fp: int) -> None:
     if framed.dim() != 4 or framed.dtype not in (torch.float32, torch.int16):
         raise ValueError(f"framed must be (B, R, G, F) float32/int16, got "
                          f"{tuple(framed.shape)} {framed.dtype}")
+    if fp % K_TILE or framed.shape[-1] > fp:
+        raise ValueError(f"Fp={fp} must be a multiple of {K_TILE} and >= F={framed.shape[-1]}")
+    _check_cuda("framed", framed, framed.device)
+
+
+def _check_constants(ct: torch.Tensor, mel2t: torch.Tensor, r: int, device: torch.device) -> None:
+    if ct.dim() != 3 or ct.shape[0] != r or ct.dtype != torch.bfloat16:
+        raise ValueError(f"ct must be ({r}, Np, Fp) bf16, got {tuple(ct.shape)} {ct.dtype}")
+    np_, fp = ct.shape[1], ct.shape[2]
+    if fp % K_TILE or np_ % N_TILE or np_ > MAX_NP:
+        raise ValueError(f"ct must be zero-padded to Fp % {K_TILE} == 0 and Np % {N_TILE} == 0 "
+                         f"with Np <= {MAX_NP}, got {tuple(ct.shape)}")
+    if tuple(mel2t.shape) != (N_MELS, np_) or mel2t.dtype != torch.bfloat16:
+        raise ValueError(f"mel2t must be ({N_MELS}, {np_}) bf16, got "
+                         f"{tuple(mel2t.shape)} {mel2t.dtype}")
+    _check_cuda("ct", ct, device)
+    _check_cuda("mel2t", mel2t, device)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stage_frames(framed: torch.Tensor, fp: int) -> torch.Tensor:
+    """The staging pass: the kernel for a CUDA tensor, the plain version for
+    a CPU tensor. Arguments as in :func:`stage_frames_plain`."""
+    if not framed.is_cuda:
+        return stage_frames_plain(framed, fp)
+    _check_frames(framed, fp)
     b, r, g, f = framed.shape
-    if c.dim() != 3 or c.shape[0] != r or c.dtype != torch.bfloat16:
-        raise ValueError(f"c must be ({r}, Fp, Np) bf16, got {tuple(c.shape)} {c.dtype}")
-    fp, np_ = c.shape[1], c.shape[2]
-    if fp % TILE or np_ % TILE or f > fp:
-        raise ValueError(f"c must be zero-padded to multiples of {TILE} with Fp >= F")
-    if tuple(mel2.shape) != (np_, N_MELS) or mel2.dtype != torch.bfloat16:
-        raise ValueError(f"mel2 must be ({np_}, {N_MELS}) bf16, got "
-                         f"{tuple(mel2.shape)} {mel2.dtype}")
-    for name, t in (("framed", framed), ("c", c), ("mel2", mel2)):
-        if t.device != framed.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor "
-                             f"on {framed.device}")
-    out = torch.empty((b, r, g, N_MELS), device=framed.device, dtype=torch.float32)
+    xs = torch.empty((r, b * g, fp), device=framed.device, dtype=torch.bfloat16)
+    if xs.numel() == 0:
+        return xs
+    fn = build.function("fused_mel_power", "ayt_stage_frames",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+    with torch.cuda.device(framed.device):
+        err = fn(framed.data_ptr(), int(framed.dtype == torch.int16), xs.data_ptr(),
+                 b, r, g, f, fp, _stream(framed))
+    build.check_launch(err, "stage_frames")
+    return xs
+
+
+def mel_power_staged(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
+                     b: int, g: int) -> torch.Tensor:
+    """The main pass (TMA + wgmma) on the staging pass's output: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor. Arguments as in
+    :func:`mel_power_staged_plain`."""
+    if not xs.is_cuda:
+        return mel_power_staged_plain(xs, ct, mel2t, b, g)
+    r = ct.shape[0] if ct.dim() == 3 else -1
+    _check_constants(ct, mel2t, r, xs.device)
+    np_, fp = ct.shape[1], ct.shape[2]
+    if tuple(xs.shape) != (r, b * g, fp) or xs.dtype != torch.bfloat16:
+        raise ValueError(f"xs must be ({r}, {b * g}, {fp}) bf16, got {tuple(xs.shape)} {xs.dtype}")
+    _check_cuda("xs", xs, xs.device)
+    out = torch.empty((b, r, g, N_MELS), device=xs.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    fn = build.function("fused_mel_power", "ayt_fused_mel_power",
-                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    with torch.cuda.device(framed.device):
-        err = fn(
-            framed.data_ptr(), int(framed.dtype == torch.int16), c.data_ptr(),
-            mel2.data_ptr(), out.data_ptr(), b, r, g, f, fp, np_,
-            torch.cuda.current_stream(framed.device).cuda_stream,
-        )
-    build.check_launch(err, "fused_mel_power")
-    fused_mel_power.launches += 1
+    fn = build.function("fused_mel_power", "ayt_mel_power_staged",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(xs.device):
+        err = fn(xs.data_ptr(), ct.data_ptr(), mel2t.data_ptr(), out.data_ptr(),
+                 b, r, g, fp, np_, _stream(xs))
+    build.check_launch(err, "mel_power_staged")
+    return out
+
+
+def fused_mel_power(framed: torch.Tensor, ct: torch.Tensor,
+                    mel2t: torch.Tensor) -> torch.Tensor:
+    """(B, R, G, F) frames -> (B, R, G, 32) mel power in phase order.
+
+    CUDA tensors launch the two kernels (or raise) and count one launch;
+    CPU tensors take the plain version. Arguments as in
+    :func:`fused_mel_power_plain`.
+    """
+    if not framed.is_cuda:
+        return fused_mel_power_plain(framed, ct, mel2t)
+    if framed.dim() != 4:
+        raise ValueError(f"framed must be (B, R, G, F), got {tuple(framed.shape)}")
+    b, r, g, _ = framed.shape
+    _check_constants(ct, mel2t, r, framed.device)
+    out = mel_power_staged(stage_frames(framed, ct.shape[-1]), ct, mel2t, b, g)
+    if out.numel():
+        fused_mel_power.launches += 1
     return out
 
 
@@ -90,11 +166,12 @@ fused_mel_power.launches = 0
 
 
 class MelKernelFrontend(nn.Module):
-    """The bf16 constants of kernel 1, held as (non-persistent) buffers.
+    """The bf16 constants of kernel 1, K-major, held as (non-persistent)
+    buffers: ``ct`` (R, Np, Fp) = C_r^T and ``mel2t`` (32, Np) = [M; M]^T.
 
     Built from a combined matrix ``c`` (R, F, 2F') float32 (a
     ``FusedFrameDFT.c``, or a window-folded DFT matrix with R = 1) and a mel
-    filterbank (F', n_mels). int16 frames read ``c_i16 = bf16(c / 32768)``,
+    filterbank (F', n_mels). int16 frames read ``ct_i16 = bf16(c / 32768)^T``,
     the PCM dequant folded into the constant as the Pallas frontend does.
     """
 
@@ -109,20 +186,23 @@ class MelKernelFrontend(nn.Module):
             raise ValueError(f"kernel 1 computes {N_MELS} mel bands, the config asks "
                              f"for {fb.shape[1]}")
         self.n_mels = fb.shape[1]
-        fp, np_ = _round_up(f, TILE), _round_up(k2, TILE)
+        fp, np_ = _round_up(f, K_TILE), _round_up(k2, N_TILE)
+        if np_ > MAX_NP:
+            raise ValueError(f"kernel 1 holds at most {MAX_NP // 2} frequency bins, the config "
+                             f"gives {k2 // 2}")
 
-        def pad_c(a: np.ndarray) -> torch.Tensor:
-            out = torch.zeros((r, fp, np_), dtype=torch.bfloat16)
-            out[:, :f, :k2] = torch.from_numpy(a).to(torch.bfloat16)
+        def pad_ct(a: np.ndarray) -> torch.Tensor:
+            out = torch.zeros((r, np_, fp), dtype=torch.bfloat16)
+            out[:, :k2, :f] = torch.from_numpy(a).to(torch.bfloat16).transpose(1, 2)
             return out
 
-        mel2 = torch.zeros((np_, self.n_mels), dtype=torch.bfloat16)
-        mel2[:k2] = torch.from_numpy(np.concatenate([fb, fb], axis=0)).to(torch.bfloat16)
-        self.register_buffer("c", pad_c(c32), persistent=False)
-        self.register_buffer("c_i16", pad_c(c32 * np.float32(1.0 / 32768.0)), persistent=False)
-        self.register_buffer("mel2", mel2, persistent=False)
+        mel2t = torch.zeros((self.n_mels, np_), dtype=torch.bfloat16)
+        mel2t[:, :k2] = torch.from_numpy(np.concatenate([fb, fb], axis=0)).to(torch.bfloat16).t()
+        self.register_buffer("ct", pad_ct(c32), persistent=False)
+        self.register_buffer("ct_i16", pad_ct(c32 * np.float32(1.0 / 32768.0)), persistent=False)
+        self.register_buffer("mel2t", mel2t, persistent=False)
 
     def forward(self, framed: torch.Tensor) -> torch.Tensor:
         """(B, R, G, F) float32/int16 frames -> (B, R, G, n_mels) mel power."""
-        c = self.c_i16 if framed.dtype == torch.int16 else self.c
-        return fused_mel_power(framed, c, self.mel2)
+        ct = self.ct_i16 if framed.dtype == torch.int16 else self.ct
+        return fused_mel_power(framed, ct, self.mel2t)

@@ -10,9 +10,11 @@ Phases, each of which raises on failure:
 1. build every kernel under ``audioyolo_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the seconds taken;
 2. print the card's name and power limit (``nvidia-smi``);
-3. kernel 1 (``fused_mel_power``) against its plain version on the card, at
-   the serving batch (B=32) for int16 and float32 frames and for the waveform
-   path's frames; times against its bound and the bf16 ``torch.matmul`` pair;
+3. kernel 1 (``fused_mel_power``: a staging pass, then the TMA + ``wgmma``
+   main pass) against its plain version on the card, at the serving batch
+   (B=32) for int16 and float32 frames, a ragged B=3 and the waveform path's
+   frames; the staging pass bit for bit; times of each pass and of both
+   against the bound and the bf16 ``torch.matmul`` pair;
 4. kernels 2 and 3 (greedy interval NMS, chunked and row by row) against
    the plain version, bit for bit, on random, near-threshold and chained
    intervals at (32, 630);
@@ -86,7 +88,7 @@ def phase_build():
     log(f"[build] {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s: {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "wgmma", "setmaxnreg", "arning")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -111,7 +113,9 @@ def phase_mel(dev, card):
     import torch
 
     from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
-    from audioyolo_tpu_torch.ops.mel_kernel import fused_mel_power, fused_mel_power_plain
+    from audioyolo_tpu_torch.ops.mel_kernel import (fused_mel_power, fused_mel_power_plain,
+                                                    mel_power_staged, stage_frames,
+                                                    stage_frames_plain)
 
     cfg = _serving_config()
     fe = SpectralFrontend(cfg).to(dev)
@@ -119,45 +123,60 @@ def phase_mel(dev, card):
     rng = np.random.default_rng(0)
     wav = (rng.standard_normal((BATCH, cfg.clip_samples)) * 0.1).astype(np.float32)
     wav16 = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    wav16[0, :2] = (-32768, 32767)  # the int16 extremes reach the staging pass
     res = {}
     for name, x_np in (("int16", fe.frame_host(wav16)), ("float32", fe.frame_host(wav))):
         x = torch.from_numpy(x_np).to(dev)
-        c = mk.c_i16 if x.dtype == torch.int16 else mk.c
-        out = fused_mel_power(x, c, mk.mel2)
-        ref = fused_mel_power_plain(x, c, mk.mel2)
+        ct = mk.ct_i16 if x.dtype == torch.int16 else mk.ct
+        b, r, g, f = x.shape
+        fp = ct.shape[-1]
+        xs = stage_frames(x, fp)
+        torch.cuda.synchronize()
+        assert torch.equal(xs.view(torch.int16), stage_frames_plain(x, fp).view(torch.int16)), \
+            f"staging pass ({name}) differs from its plain version"
+        out = fused_mel_power(x, ct, mk.mel2t)
+        ref = fused_mel_power_plain(x, ct, mk.mel2t)
         torch.cuda.synchronize()
         err = (out - ref).abs()
         rel = (err / (ref.abs() + 1e-3)).max().item()
-        b, r, g, f = x.shape
         k2 = 2 * fe.fused.n_freq
         assert out.shape == (b, r, g, 32) and torch.isfinite(out).all()
         assert rel < MEL_REL_BOUND, f"kernel 1 ({name}) rel err {rel:.3e} >= {MEL_REL_BOUND}"
-        ms = time_ms(lambda: fused_mel_power(x, c, mk.mel2))
-        plain_ms = time_ms(lambda: fused_mel_power_plain(x, c, mk.mel2), iters=5)
-        cb = c[:, :f, :].contiguous()
+        stage_ms = time_ms(lambda: stage_frames(x, fp))
+        main_ms = time_ms(lambda: mel_power_staged(xs, ct, mk.mel2t, b, g))
+        ms = time_ms(lambda: fused_mel_power(x, ct, mk.mel2t))
+        plain_ms = time_ms(lambda: fused_mel_power_plain(x, ct, mk.mel2t), iters=5)
+        # the yardstick's constants in their (R, F, Np) and (Np, 32) layouts, made before timing
+        cb = ct[:, :, :f].transpose(1, 2).contiguous()
+        mel2 = mk.mel2t.t().contiguous()
 
         def library():  # cuBLAS bf16: one (B*G, F) x (F, 2F') GEMM per phase, square, mel GEMM
             spec = torch.einsum("brgf,rfk->brgk", x.to(torch.bfloat16), cb)
-            return torch.matmul(spec * spec, mk.mel2)
+            return torch.matmul(spec * spec, mel2)
 
         lib_ms = time_ms(library)
         flops = 2 * b * r * g * (f * k2 + k2 * 32)
         nbytes = x.numel() * x.element_size() + r * f * k2 * 2 + k2 * 32 * 2 + out.numel() * 4
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
-        res[name] = dict(max_abs_err=err.max().item(), max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[kernel 1 framed {name} {tuple(x.shape)}] max_abs_err {err.max().item():.3e} "
-            f"max_rel_err {rel:.3e} (bound {MEL_REL_BOUND}) kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bf16 matmul pair {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s [{card}]")
-        # a ragged batch: 3 clips = 360 rows, the last CTA's rows partly masked
-        out3 = fused_mel_power(x[:3].contiguous(), c, mk.mel2)
-        ref3 = fused_mel_power_plain(x[:3], c, mk.mel2)
+        res[name] = dict(max_abs_err=err.max().item(), max_rel_err=rel, ms=ms, stage_ms=stage_ms,
+                         main_ms=main_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        log(f"[kernel 1 framed {name} {tuple(x.shape)}] staging bit-equal; max_abs_err "
+            f"{err.max().item():.3e} max_rel_err {rel:.3e} (bound {MEL_REL_BOUND}) kernel {ms:.4f} ms "
+            f"(staging {stage_ms:.4f} + main {main_ms:.4f}), plain {plain_ms:.4f} ms, bf16 matmul "
+            f"pair {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+            f"bound [{card}]")
+        # a ragged batch: 3 clips = 360 rows, the last CTA's rows partly out of bounds
+        x3 = x[:3].contiguous()
+        assert torch.equal(stage_frames(x3, fp).view(torch.int16),
+                           stage_frames_plain(x3, fp).view(torch.int16))
+        out3 = fused_mel_power(x3, ct, mk.mel2t)
+        ref3 = fused_mel_power_plain(x3, ct, mk.mel2t)
         rel3 = ((out3 - ref3).abs() / (ref3.abs() + 1e-3)).max().item()
         assert rel3 < MEL_REL_BOUND, f"kernel 1 ({name}, B=3) rel err {rel3:.3e}"
-        log(f"[kernel 1 framed {name} B=3] max_rel_err {rel3:.3e}")
-        del x, out, ref
+        log(f"[kernel 1 framed {name} B=3] staging bit-equal; max_rel_err {rel3:.3e}")
+        del x, xs, out, ref
 
     # the waveform path's frames: one phase, window-folded DFT, F = n_fft
     from audioyolo_tpu_torch.ops.frontend import frame_signal
@@ -166,13 +185,16 @@ def phase_mel(dev, card):
     frames = frame_signal(fe.resampler(xw), fe.mel.n_fft, fe.mel.hop, False, "reflect")
     frames = frames.contiguous()[:, None]
     wk = fe.mel.kernel
-    out = fused_mel_power(frames, wk.c, wk.mel2)
-    ref = fused_mel_power_plain(frames, wk.c, wk.mel2)
+    fp = wk.ct.shape[-1]
+    assert torch.equal(stage_frames(frames, fp).view(torch.int16),
+                       stage_frames_plain(frames, fp).view(torch.int16))
+    out = fused_mel_power(frames, wk.ct, wk.mel2t)
+    ref = fused_mel_power_plain(frames, wk.ct, wk.mel2t)
     rel = ((out - ref).abs() / (ref.abs() + 1e-3)).max().item()
     assert rel < MEL_REL_BOUND, f"kernel 1 (waveform frames) rel err {rel:.3e}"
-    ms = time_ms(lambda: fused_mel_power(frames, wk.c, wk.mel2))
-    log(f"[kernel 1 waveform frames {tuple(frames.shape)}] max_rel_err {rel:.3e} "
-        f"kernel {ms:.4f} ms [{card}]")
+    ms = time_ms(lambda: fused_mel_power(frames, wk.ct, wk.mel2t))
+    log(f"[kernel 1 waveform frames {tuple(frames.shape)}] staging bit-equal; max_rel_err "
+        f"{rel:.3e} kernel {ms:.4f} ms [{card}]")
     return res
 
 
@@ -478,8 +500,8 @@ def main() -> int:
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
              replaces="audioyolo_tpu/ops/pallas_frontend.py:64",
              launches=counts["fused_mel_power"],
-             **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}),
+             **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "stage_ms", "plain_ms",
+                                              "bound_ms", "bound_by", "library_ms")}),
         dict(name="greedy_suppress_blocked", route="cuda", source=src + "interval_nms.cu",
              replaces="audioyolo_tpu/ops/pallas_nms.py:172",
              launches=counts["greedy_suppress_blocked"], **nms["greedy_suppress_blocked"]),

@@ -23,7 +23,8 @@ from audioyolo_tpu_torch.config import Config, load_config
 from audioyolo_tpu_torch.ops import frontend as tfe
 from audioyolo_tpu_torch.ops import resample as trs
 from audioyolo_tpu_torch.ops.fused_frontend import get_fused_frame_dft as tfused
-from audioyolo_tpu_torch.ops.mel_kernel import MelKernelFrontend, fused_mel_power_plain
+from audioyolo_tpu_torch.ops.mel_kernel import (MelKernelFrontend, fused_mel_power_plain,
+                                               stage_frames_plain)
 
 
 @pytest.fixture(scope="module")
@@ -98,16 +99,45 @@ def test_fused_frame_dft_constants(which, full_raw, tiny_cfg):
 
 
 def test_mel_kernel_constants(jax_full):
+    """K-major constants: C_r^T and [M; M]^T, bit-equal to the Pallas
+    frontend's, transposed, and zero in the padding."""
     jf, pm = jax_full
     mk = MelKernelFrontend(jf.fused.c, jf.mel.mel_fb_np)
     r, f, k2 = jf.fused.c.shape
-    assert tuple(mk.c.shape) == (r, 1792, 1024) and tuple(mk.mel2.shape) == (1024, 32)
-    for ours, theirs in ((mk.c, pm.c), (mk.c_i16, pm.c_i16)):
-        np.testing.assert_array_equal(ours[:, :f, :k2].float().numpy(),
+    assert tuple(mk.ct.shape) == (r, 1024, 1792) and tuple(mk.mel2t.shape) == (32, 1024)
+    for ours, theirs in ((mk.ct, pm.c), (mk.ct_i16, pm.c_i16)):
+        np.testing.assert_array_equal(ours[:, :k2, :f].transpose(1, 2).float().numpy(),
                                       np.asarray(theirs, np.float32))
-        assert not ours[:, f:].any() and not ours[:, :, k2:].any()
-    np.testing.assert_array_equal(mk.mel2[:k2].float().numpy(), np.asarray(pm.mel2, np.float32))
-    assert not mk.mel2[k2:].any()
+        assert not ours[:, k2:].any() and not ours[:, :, f:].any()
+    np.testing.assert_array_equal(mk.mel2t[:, :k2].t().float().numpy(), np.asarray(pm.mel2, np.float32))
+    assert not mk.mel2t[:, k2:].any()
+
+
+@pytest.mark.parametrize("case", ["int16_extremes", "float32", "ragged_b3", "waveform"])
+def test_stage_frames_plain_layout(case):
+    """The staging pass's plain version: ``framed.to(bf16)`` phase-major (R,
+    B*G, Fp) and zero-padded, bit for bit (int16 extremes included)."""
+    rng = np.random.default_rng(9)
+    shape = {"int16_extremes": (2, 8, 5, 1782), "float32": (2, 8, 5, 1782),
+             "ragged_b3": (3, 8, 7, 1782), "waveform": (2, 1, 9, 1000)}[case]
+    if case == "float32" or case == "waveform":
+        x = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+        x.flat[:4] = [1e-40, -0.0, 3.0e38, 1.00390625]  # subnormal, -0, large, a bf16 tie
+    else:
+        x = rng.integers(-32768, 32768, shape).astype(np.int16)
+        x[..., :2] = [-32768, 32767]
+    b, r, g, f = shape
+    fp = -(-f // 64) * 64
+    xs = stage_frames_plain(torch.from_numpy(x), fp)
+    assert xs.dtype == torch.bfloat16 and tuple(xs.shape) == (r, b * g, fp)
+    ref = torch.from_numpy(x).to(torch.bfloat16)
+    for bi in range(b):
+        for ri in range(r):
+            rows = xs[ri, bi * g:(bi + 1) * g]
+            assert torch.equal(rows[:, :f].view(torch.int16), ref[bi, ri].view(torch.int16))
+            assert not rows[:, f:].float().any()
+    if case == "int16_extremes":
+        assert xs[0, 0, 0].item() == -32768.0 and xs[0, 0, 1].item() == 32768.0
 
 
 def _images_close(ours, ref):
@@ -152,12 +182,41 @@ def test_plain_mel_matches_pallas_interpret(dtype, jax_full):
     ref = np.asarray(pm(jnp.asarray(framed), interpret=True))
     with torch.no_grad():
         out = mk(torch.from_numpy(framed)).numpy()
-        c = mk.c_i16 if dtype == "int16" else mk.c
-        np.testing.assert_array_equal(fused_mel_power_plain(torch.from_numpy(framed), c, mk.mel2).numpy(), out)
+        ct = mk.ct_i16 if dtype == "int16" else mk.ct
+        np.testing.assert_array_equal(fused_mel_power_plain(torch.from_numpy(framed), ct, mk.mel2t).numpy(), out)
     assert out.shape == ref.shape == (1, 8, 120, 32)
     rel = np.abs(out - ref) / (np.abs(ref) + 1e-3)
     print(f"plain vs Pallas interpret ({dtype}): max rel {rel.max():.3e}")
     assert rel.max() < 2e-2, rel.max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_plain_mel_two_passes_match_direct_form(dtype):
+    """Staging + K-major constants compute what the direct form (B, R, G, F) @
+    C_r, squared, @ [M; M] computes, on a ragged batch: only the fp32
+    summation order differs, which may flip the odd bf16 rounding of
+    spec^2 (same bound as the Pallas comparison)."""
+    rng = np.random.default_rng(10)
+    b, r, g, f, nf = 3, 2, 5, 100, 51
+    c = (rng.standard_normal((r, f, 2 * nf)) * 0.1).astype(np.float32)
+    fb = rng.uniform(0, 1, (nf, 32)).astype(np.float32)
+    mk = MelKernelFrontend(c, fb)
+    assert tuple(mk.ct.shape) == (r, 256, 128) and tuple(mk.mel2t.shape) == (32, 256)
+    x = rng.standard_normal((b, r, g, f)).astype(np.float32)
+    if dtype == "int16":
+        x = np.clip(np.round(x * 8000), -32768, 32767).astype(np.int16)
+        c = c / np.float32(32768.0)
+    framed = torch.from_numpy(x)
+    with torch.no_grad():
+        out = mk(framed)
+        xb = framed.float().to(torch.bfloat16).float()
+        spec = torch.matmul(xb, torch.from_numpy(c).to(torch.bfloat16).float().unsqueeze(0))
+        sq = (spec * spec).to(torch.bfloat16).float()
+        mel2 = torch.from_numpy(np.concatenate([fb, fb])).to(torch.bfloat16).float()
+        ref = torch.matmul(sq, mel2)
+    assert out.shape == ref.shape == (b, r, g, 32)
+    rel = ((out - ref).abs() / (ref.abs() + 1e-3)).max().item()
+    assert rel < 2e-2, rel
 
 
 @pytest.mark.parametrize("prec", ["bf16", "int8", "high"])
@@ -197,4 +256,15 @@ def test_kernel_posture_rejects_other_mel_widths(tiny_cfg):
     raw["melspectrogram_config"]["n_mels"] = 16
     raw["mfcc_config"]["melkwargs"]["n_mels"] = 16
     with pytest.raises(ValueError, match="32 mel bands"):
+        tfe.SpectralFrontend(Config(raw))
+
+
+def test_kernel_posture_rejects_wide_spectra(tiny_cfg):
+    """Kernel 1 keeps [M; M]^T (32 x 2F', padded to 1024) in shared memory;
+    n_fft = 1024 (513 bins) fails at construction, not on the card."""
+    raw = tiny_cfg.to_dict()
+    raw["tpu_config"].update(frontend_precision="default", pallas_frontend="on")
+    for mel in (raw["melspectrogram_config"], raw["mfcc_config"]["melkwargs"]):
+        mel.update(n_fft=1024, hop_length=1024)
+    with pytest.raises(ValueError, match="at most 512 frequency bins"):
         tfe.SpectralFrontend(Config(raw))
