@@ -16,8 +16,12 @@ Phases, each of which raises on failure:
    frames; the staging pass bit for bit; times of each pass and of both
    against the bound and the bf16 ``torch.matmul`` pair;
 4. kernels 2 and 3 (greedy interval NMS, chunked and row by row) against
-   the plain version, bit for bit, on random, near-threshold and chained
-   intervals at (32, 630);
+   the plain version, bit for bit, on random, near-threshold, chained and
+   non-finite intervals at (32, 630), (1, 630), (3, 77), (2, 1024) and
+   (2, 2048); K above the kernels' limit must raise; each kernel's device
+   time from a profiler trace (``ms``) beside the wrapper call's time on
+   CUDA events (``call_ms``), at B=32 and B=1 and on the chain, and the
+   launch floor (an empty kernel through the same ``ctypes`` route);
 5. serving: the shipped model at full width with seeded weights, folded,
    behind the port's HTTP server; three WAVs (150 s and 7 s at 22 050 Hz,
    60 s at 16 000 Hz) are POSTed, both kernels must have launched, and the
@@ -220,46 +224,100 @@ def _near_threshold(thr, n):
     return np.array(x1 * reps, f32)[:n], np.array(x2 * reps, f32)[:n]
 
 
-def phase_nms(dev, card):
+def _nms_cases(b, k, seed):
+    """Random, chained and non-finite (B, K) interval bounds, numpy float32."""
     import numpy as np
-    import torch
 
-    from audioyolo_tpu_torch.ops.nms_kernel import (greedy_suppress_blocked,
-                                                    greedy_suppress_rows,
-                                                    greedy_suppress_unblocked)
-
-    k = 630
-    rng = np.random.default_rng(1)
-    c = rng.uniform(0, 60, (BATCH, k)).astype(np.float32)
-    w = rng.uniform(0.2, 20, (BATCH, k)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 60, (b, k)).astype(np.float32)
+    w = rng.uniform(0.2, 20, (b, k)).astype(np.float32)
     cases = {"random": (np.clip(c - w / 2, 0, 60), np.clip(c + w / 2, 0, 60))}
     chain = np.arange(k, dtype=np.float32) * np.float32(0.6)
-    cases["chain"] = (np.tile(chain, (BATCH, 1)), np.tile(chain + np.float32(1), (BATCH, 1)))
+    cases["chain"] = (np.tile(chain, (b, 1)), np.tile(chain + np.float32(1), (b, 1)))
     x1n, x2n = cases["random"][0].copy(), cases["random"][1].copy()
     for arr, value, share in ((x1n, np.nan, 0.05), (x2n, np.inf, 0.03), (x1n, -np.inf, 0.03),
                               (x2n, np.nan, 0.02)):
         arr[rng.random(arr.shape) < share] = value
     cases["non-finite"] = (x1n, x2n)
-    checked, max_err = 0, 0
-    for thr in (0.1, 0.45):
-        near = _near_threshold(thr, k)
-        cases_t = dict(cases, near=(np.tile(near[0], (BATCH, 1)), np.tile(near[1], (BATCH, 1))))
-        for name, (x1n, x2n) in cases_t.items():
-            x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
-            ref = greedy_suppress_rows(x1, x2, thr)
-            for fn in (greedy_suppress_blocked, greedy_suppress_unblocked):
-                got = fn(x1, x2, thr)
-                torch.cuda.synchronize()
-                max_err = max(max_err, int((got.to(torch.int8) - ref.to(torch.int8)).abs().max()))
-                assert torch.equal(got, ref), f"{fn.__name__} differs from plain ({name}, {thr})"
-                checked += 1
-    log(f"[kernels 2, 3] bit-identical to the plain version in {checked} cases "
-        f"(random, near-threshold +-1 ulp, chain, NaN and inf bounds; thresholds 0.1 "
-        f"and 0.45; {BATCH}x{k})")
+    return cases
 
-    x1n, x2n = cases["random"]
-    x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
+
+def device_ms(fn, name, iters=50, warmup=3):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``name``, from a ``torch.profiler`` trace of ``iters`` calls of ``fn``
+    (over the launches the trace holds: now and then it misses one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then a trace comes back without the device's events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) == DeviceType.CUDA and name in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                total_us += ev.self_cuda_time_total if us is None else us
+                count += ev.count
+        if iters // 2 <= count <= iters:
+            return total_us / count / 1e3
+    raise AssertionError(f"the profiler saw {count} launches of {name} of {iters}")
+
+
+def phase_nms(dev, card):
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.ops import build
+    from audioyolo_tpu_torch.ops.nms_kernel import (K_MAX, greedy_suppress_blocked,
+                                                    greedy_suppress_rows,
+                                                    greedy_suppress_unblocked)
+
+    fns = (greedy_suppress_blocked, greedy_suppress_unblocked)
+    checked, max_err = 0, 0
+    for b, k in ((BATCH, 630), (1, 630), (3, 77), (2, 1024), (2, K_MAX)):
+        cases = _nms_cases(b, k, seed=1 + k + b)
+        for thr in (0.1, 0.45):
+            near = _near_threshold(thr, k)
+            cases_t = dict(cases, near=(np.tile(near[0], (b, 1)), np.tile(near[1], (b, 1))))
+            for name, (x1n, x2n) in cases_t.items():
+                x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
+                ref = greedy_suppress_rows(x1, x2, thr)
+                for fn in fns:
+                    got = fn(x1, x2, thr)
+                    torch.cuda.synchronize()
+                    max_err = max(max_err, int((got.to(torch.int8) - ref.to(torch.int8)).abs().max()))
+                    assert torch.equal(got, ref), f"{fn.__name__} differs from plain ({name}, {thr}, {b}x{k})"
+                    checked += 1
+    log(f"[kernels 2, 3] bit-identical to the plain version in {checked} cases (random, "
+        f"near-threshold +-1 ulp, chain, NaN and inf bounds; thresholds 0.1 and 0.45; "
+        f"{BATCH}x630, 1x630, 3x77, 2x1024, 2x{K_MAX})")
+    over = torch.zeros((1, K_MAX + 1), device=dev)
+    for fn in fns:
+        before = fn.launches
+        try:
+            fn(over, over, 0.1)
+        except ValueError as e:
+            assert str(K_MAX) in str(e) and fn.launches == before, e
+        else:
+            raise AssertionError(f"{fn.__name__} took K={K_MAX + 1} above its limit")
+    log(f"[kernels 2, 3] K={K_MAX + 1} raises ValueError, as it must above K_MAX={K_MAX}")
+
+    k = 630
+    cases = _nms_cases(BATCH, k, seed=1)
+    x1, x2 = (torch.from_numpy(a).to(dev) for a in cases["random"])
+    c1, c2 = (torch.from_numpy(a).to(dev) for a in cases["chain"])
     keep = greedy_suppress_rows(x1, x2, 0.1)
+    kept = keep.sum(1)
+    log(f"[kernels 2, 3] rows kept per clip at thr 0.1: random mean {kept.float().mean().item():.2f} "
+        f"max {kept.max().item()}, chain {int(greedy_suppress_rows(c1, c2, 0.1)[0].sum())} of {k}")
     # work this data needs: each kept row's IoU with every later column,
     # ~10 fp32 operations each (min, max, 3 add/sub, 2 max, div, compare, and)
     kept_idx = torch.nonzero(keep)[:, 1]
@@ -267,14 +325,29 @@ def phase_nms(dev, card):
     nbytes = 2 * x1.numel() * 4 + keep.numel()
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32)
     plain_ms = time_ms(lambda: greedy_suppress_rows(x1, x2, 0.1), iters=3, warmup=1)
+    empty = build.function("interval_nms", "ayt_empty_launch", [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty_launch():
+        build.check_launch(empty(stream), "empty launch")
+
+    floor_ms, floor_call_ms = device_ms(empty_launch, "empty_kernel"), time_ms(empty_launch, iters=50)
+    log(f"[launch floor] empty kernel {floor_ms:.6f} ms on the device, {floor_call_ms:.6f} ms per "
+        f"ctypes call on CUDA events [{card}]")
+    runs = {"": (x1, x2), "_b1": (x1[:1].contiguous(), x2[:1].contiguous()), "_chain": (c1, c2)}
     res = {}
-    for fn in (greedy_suppress_blocked, greedy_suppress_unblocked):
-        ms = time_ms(lambda: fn(x1, x2, 0.1), iters=50)
-        res[fn.__name__] = dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms, library_ms=None,
-                                bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[{fn.__name__} {BATCH}x{k}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by}; the serial chain and the launch "
-            f"are what bound it) [{card}]")
+    for fn in fns:
+        r = dict(max_abs_err=float(max_err), plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                 bound_by=bound_by, launch_floor_ms=floor_ms, launch_floor_call_ms=floor_call_ms)
+        for tag, (a, b) in runs.items():
+            r["ms" + tag] = device_ms(lambda: fn(a, b, 0.1), "greedy_suppress_kernel")
+            r["call_ms" + tag] = time_ms(lambda: fn(a, b, 0.1), iters=50)
+        res[fn.__name__] = r
+        log(f"[{fn.__name__} {BATCH}x{k}] kernel {r['ms']:.6f} ms on the device ({r['call_ms']:.6f} "
+            f"per wrapper call); 1x{k} {r['ms_b1']:.6f} ({r['call_ms_b1']:.6f}); chain {BATCH}x{k} "
+            f"{r['ms_chain']:.6f} ({r['call_ms_chain']:.6f}); launch floor {floor_ms:.6f}; plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}; the serial chain and the "
+            f"launch are what bound it) [{card}]")
     return res
 
 
