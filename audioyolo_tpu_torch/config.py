@@ -40,6 +40,8 @@ class Config:
         return Config(val) if isinstance(val, dict) else val
 
     def __getattr__(self, key: str) -> Any:
+        if key == "raw":  # not set yet: copy/pickle probe a bare instance
+            raise AttributeError(key)
         try:
             return self[key]
         except KeyError as e:
@@ -113,6 +115,11 @@ class Config:
     def total_proposals(self) -> int:
         """Anchor boxes per clip across all scales (630 with shipped config)."""
         return sum(self.grid_sizes) * self.num_anchors
+
+    @property
+    def max_targets(self) -> int:
+        """Fixed target slots per clip (``tpu_config.max_targets``, 48)."""
+        return int((self.raw.get("tpu_config") or {}).get("max_targets", 48))
 
     def anchors_array(self) -> Dict[str, np.ndarray]:
         a = self.raw["anchors"]

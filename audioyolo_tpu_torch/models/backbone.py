@@ -4,13 +4,14 @@
 A torchvision-semantics ResNet (BasicBlock or Bottleneck) whose stem is two
 7x7/s2 convs over the 2-channel image, with no maxpool, avgpool or fc. The
 shipped BasicBlock [2,2,2,2] gives pyramid channels 64/128/256/512 at time
-widths 240/120/60/30 and heights 8/4/2/1. The JAX package's ``CustomBackbone``
-is not ported yet.
+widths 240/120/60/30 and heights 8/4/2/1. Dropout follows the stem in train
+mode, its mask drawn from the ``torch.Generator`` the caller hands in. The JAX
+package's ``CustomBackbone`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -67,11 +68,26 @@ class Bottleneck(nn.Module):
 _BLOCKS = {"BasicBlock": BasicBlock, "Bottleneck": Bottleneck}
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep each element with
+    probability ``1 - p`` and scale the kept ones by ``1 / (1 - p)``. The
+    mask comes from ``generator`` (on ``x``'s device), never the global RNG."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator (generator=...)")
+    keep = 1.0 - p
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x * mask * (1.0 / keep)
+
+
 class ResNetBackbone(nn.Module):
-    def __init__(self, block: str = "BasicBlock", block_layers: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, block: str = "BasicBlock", block_layers: Sequence[int] = (3, 4, 6, 3),
+                 dropout: float = 0.0):
         super().__init__()
         blk = _BLOCKS[block]
         self.block_layers = tuple(block_layers)
+        self.dropout = float(dropout)
         self.conv1 = Conv2d(2, 64, 7, 2, 3, bias=False)
         self.conv2 = Conv2d(64, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
@@ -83,8 +99,11 @@ class ResNetBackbone(nn.Module):
                 in_ch = planes * blk.expansion
         self.fmap_channels = tuple(p * blk.expansion for p in (64, 128, 256, 512))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = torch.relu(self.bn1(self.conv2(self.conv1(x))))  # dropout: identity at eval
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        x = torch.relu(self.bn1(self.conv2(self.conv1(x))))
+        if self.training:
+            x = dropout(x, self.dropout, generator)
         fmaps = []
         for li in range(4):
             for bi in range(self.block_layers[li]):

@@ -4,7 +4,13 @@
 decode. The per-cell layout along the last axis is ``[objectness,
 class_0..C-1, center_sec, width_sec]``; three scales with grids T/8, T/16,
 T/32 and ``num_anchors`` slots per cell (630 proposals per 60 s clip in the
-shipped config). Anchors are parameters normalized by ``sample_duration``.
+shipped config). Anchors are parameters normalized by ``sample_duration``;
+with ``train_anchors: false`` no gradient reaches them.
+
+``model.train()`` selects the train form (batch-statistics BatchNorm, dropout
+after the backbone's stem), ``model.eval()`` the serving form. The frontend
+has no trainable input, so it runs without autograd and the graph starts at
+the feature image.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ class AudioDetectionModel(nn.Module):
         self.frontend = SpectralFrontend(cfg)
         dur = cfg.sample_duration
         anchors = cfg.anchors_array()
+        self.train_anchors = bool(cfg.raw.get("train_anchors", True))
         for key in ("sm", "md", "lg"):
             norm = (anchors[key] / dur).astype(np.float32)
             self.register_parameter(f"{key}_anchors", nn.Parameter(torch.from_numpy(norm)))
@@ -72,7 +79,8 @@ class AudioDetectionModel(nn.Module):
         rc = dict(cfg.raw.get("resnet_config") or {})
         self.feature_extractor = ResNetBackbone(
             block=str(rc.get("block", "BasicBlock")),
-            block_layers=tuple(cfg.raw["block_layers"]))
+            block_layers=tuple(cfg.raw["block_layers"]),
+            dropout=float(cfg.raw.get("dropout", 0.0)))
         self.multiscale_module = MultiScaleFmapModule(
             self.feature_extractor.fmap_channels, self.out_channels,
             deploy=deploy, branch_act=branch_act)
@@ -86,20 +94,26 @@ class AudioDetectionModel(nn.Module):
         return cls(config, num_classes, deploy=deploy, branch_act=branch_act,
                    generator=generator)
 
+    def anchors_sec(self, key: str) -> torch.Tensor:
+        a = getattr(self, f"{key}_anchors") * self.cfg.sample_duration
+        return a if self.train_anchors else a.detach()
+
     def forward(self, audio: Optional[torch.Tensor] = None, combine_scales: bool = False,
-                features: Optional[torch.Tensor] = None):
+                features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """``audio``: (B, S) / (B, 1, S) waveform at the dataset rate or
-        (B, n_ph, G, F) frames; or precomputed ``features`` (B, n_mels, T, 2)."""
+        (B, n_ph, G, F) frames; or precomputed ``features`` (B, n_mels, T, 2).
+        ``generator`` draws the dropout mask in train mode."""
         if features is None:
             if audio is None:
                 raise ValueError("provide either audio or features")
-            features = self.frontend(audio)
+            with torch.no_grad():
+                features = self.frontend(audio)
         x = features.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
-        n2, n3, n4 = self.multiscale_module(*self.feature_extractor(x))
+        n2, n3, n4 = self.multiscale_module(*self.feature_extractor(x, generator))
         spectral, dur = self.cfg.n_frames, self.cfg.sample_duration
         scales = [
-            decode_scale(n, getattr(self, f"{key}_anchors") * dur, self.num_classes,
-                         spectral, dur)
+            decode_scale(n, self.anchors_sec(key), self.num_classes, spectral, dur)
             for n, key in ((n2, "sm"), (n3, "md"), (n4, "lg"))
         ]
         if not combine_scales:

@@ -6,9 +6,11 @@ run NCHW, the layout cuDNN takes. Submodules are named after the flax tree
 variable path joined with dots is the port's ``state_dict`` key
 (``models/from_jax.py``).
 
-Serving only: BatchNorm is the eval form with running statistics. The JAX
-package's space-to-depth stem and its H=1 middle-row conv slice are exact
-TPU rewrites of a plain convolution, so the port runs the plain one.
+BatchNorm switches with ``nn.Module.train()`` / ``.eval()``: batch
+statistics in train mode (PyTorch's two-pass form), running statistics in
+eval mode. The JAX package's space-to-depth stem and its H=1 middle-row conv
+slice are exact TPU rewrites of a plain convolution, so the port runs the
+plain one.
 """
 
 from __future__ import annotations
@@ -32,18 +34,30 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis 1:
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+    """BatchNorm over channel axis 1 with PyTorch's numerics.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval mode: ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` on the
+    running statistics. Train mode: ``F.batch_norm(training=True)``, which
+    normalises by the biased batch variance (two-pass, no cancellation) and
+    moves the running estimates by ``momentum`` (the weight of the new batch)
+    towards the batch mean and the unbiased batch variance. The JAX package's
+    one-pass form shifted by the running mean agrees where a channel's batch
+    mean is near its running mean, and cancels where it is far from it.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, True, self.momentum, self.eps)
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)

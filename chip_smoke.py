@@ -28,7 +28,20 @@ Phases, each of which raises on failure:
    model's predictions on the card must agree with the same model on the CPU;
    one serving batch's time is broken down (host clock, CUDA events, a
    profiler trace);
-6. print one JSON line of every kernel's numbers, then the device line.
+6. training: a synthetic dataset (64 train and 32 eval clips of 60 s at
+   22 050 Hz, two tone classes) written with the port's WAV writer; one
+   epoch of the shipped config through ``train_cli.run`` on the card and one
+   through the trainer directly (kernel 1 must launch once per training and
+   evaluation forward, the 10 metrics finite, the saved model must load into
+   the server); the loss must fall over 10 steps on one fixed batch; the
+   frontend's features on the card against the CPU; one step at B=2 and
+   dropout 0 on the card against the CPU (loss, every gradient, the
+   BatchNorm buffers; TF32's reading beside the bounds), for the body on
+   kernel 1's features and for the whole path from frames; the train
+   step's time at B=32 (CUDA events, host framing and copy on the host
+   clock, audio-s/s, peak memory, the top kernels of the forward, the
+   backward and the optimizer step from profiler traces);
+7. print one JSON line of every kernel's numbers, then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this file.
@@ -57,6 +70,31 @@ MEL_REL_BOUND = 1e-2   # relative, over |plain| + 1e-3: fp32 order + odd bf16 fl
 # the same features (float32 only). Both sit below what TF32 convolutions read.
 PREDS_REL_BOUND = 1e-4
 BODY_REL_BOUND = 1e-5
+# one train step at B=2, dropout 0, on the card against the CPU. The gradient
+# has kinks (ReLUs, max pools, the clipped CIoU) that float32 rounding moves a
+# unit across now and then, so it is read per tensor as max |diff| / max |g|
+# by its median and 90th percentile over the tensors, and over all tensors at
+# once as a relative L2 norm; the conv biases ahead of a train-mode BatchNorm,
+# whose gradient is 0 in exact arithmetic, against the largest gradient. The
+# loss and every updated BatchNorm buffer (max |diff| / max |value|) are read
+# whole. Two inputs:
+# - the body: kernel 1's feature image of two training clips on both sides
+#   (float32 only; the card read 1.1e-6, 2.3e-3, 5.9e-3, 2.5e-3, 3.8e-9 and
+#   1.3e-5 in the order of the keys below, TF32 6.7e-4, 0.20, 0.36, 0.30 and
+#   6.9e-3);
+# - the whole path from the frames of two unpadded clips, kernel 1 on the card
+#   and its plain version on the CPU (the card read 3.8e-5, 6.7e-2, 0.11, 8.7e-2
+#   and 1.1e-3, TF32 4.7e-3, 0.88, 1.33, 1.22 and 0.12): kernel 1's bf16
+#   rounding moves MFCC coefficients near 0, which the frontend's second dB
+#   map turns into O(1) pixels (2e-3 of them at most on unpadded audio).
+# Every bound sits below what TF32 convolutions read.
+TRAIN_BODY_BOUNDS = dict(loss=1e-5, grad_median=2e-2, grad_p90=5e-2, grad_l2=2e-2,
+                         grad_zero=1e-6, bn=1e-4)
+TRAIN_PATH_BOUNDS = dict(loss=1e-3, grad_median=0.3, grad_p90=0.5, grad_l2=0.4,
+                         grad_zero=1e-6, bn=1e-2)
+FEATURE_MEL_REL_BOUND = 1e-3   # log-mel channel, max |diff| / max |value|
+FEATURE_MFCC_SHARE_BOUND = 2e-3  # MFCC pixels off by > 1e-3, unpadded audio
+TRAIN_CLIPS, EVAL_CLIPS = 64, 32
 
 
 def log(*a):
@@ -544,6 +582,351 @@ def phase_serving(dev, card):
     return counts
 
 
+def _write_train_dataset(root, cfg, seed=7):
+    """64 train and 32 eval clips at the config's rate, PCM16, with 1-6 tone
+    events of two classes over random spans; one clip in four is shorter
+    than the clip length. Annotations in the reference's flat layout."""
+    import numpy as np
+
+    from audioyolo_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    sr, dur = cfg.sample_rate, cfg.sample_duration
+    freqs = {"music": 440.0, "alarm": 1200.0}
+    ann = {}
+    for split, n in (("train", TRAIN_CLIPS), ("eval", EVAL_CLIPS)):
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            length = dur if i % 4 else float(rng.uniform(0.5, 0.9)) * dur
+            x = (0.01 * rng.standard_normal(int(length * sr))).astype(np.float32)
+            # spans in units of dur/60 (seconds at the shipped 60 s): widths 2-12,
+            # gaps 0.5-6, the first event always fits
+            u = dur / 60.0
+            segs, cursor = {}, float(rng.uniform(0.0, 4.0)) * u
+            for j in range(int(rng.integers(1, 7))):
+                start = cursor
+                end = min(cursor + float(rng.uniform(2.0, 12.0)) * u, length - 0.5 * u)
+                if end <= start + 0.5 * u:
+                    break
+                cls = ("music", "alarm")[int(rng.integers(0, 2))]
+                a, b = int(start * sr), int(end * sr)
+                x[a:b] += 0.4 * np.sin(2 * np.pi * freqs[cls] * np.arange(b - a) / sr)
+                segs[f"seg-{j}"] = {"start": start, "end": end, "class": cls}
+                cursor = end + float(rng.uniform(0.5, 6.0)) * u
+            write_wav(os.path.join(root, split, f"{split}{i:03d}.wav"), x, sr)
+            ann[f"{split}{i:03d}"] = segs
+    os.makedirs(os.path.join(root, "annotations"))
+    with open(os.path.join(root, "annotations", "annotation.json"), "w") as f:
+        json.dump({"annotations": {"annotator_a": ann}}, f)
+
+
+def _train_config(tmp):
+    from audioyolo_tpu_torch.config import Config
+
+    raw = _serving_config().to_dict()
+    raw["train_config"].update(
+        dataset_path=os.path.join(tmp, "data"), class_map_path=os.path.join(tmp, "class_map"),
+        model_path=os.path.join(tmp, "model"), metrics_path=os.path.join(tmp, "metrics"),
+        epochs=1, verbose=True)
+    return Config(raw)
+
+
+def _check_epoch_metrics(where, metrics):
+    import math
+
+    vals = list(metrics.values())
+    assert not any(math.isinf(v) for v in vals), (where, metrics)
+    assert math.isfinite(metrics["aggregate_loss"]) and math.isfinite(metrics["conf_loss"]), \
+        (where, metrics)
+
+
+def _profiled(fn):
+    """One call of ``fn`` under ``torch.profiler``: its result, the device
+    kernels (ms, count, name) by device time, and their sum. The range
+    ``torch.optim`` opens around a step (``Optimizer.step#Adam.step``) also
+    shows on the device's timeline; it is no kernel and is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or ev.key.startswith("Optimizer.")):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        rows.append(((ev.self_cuda_time_total if us is None else us) / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return out, rows, sum(r[0] for r in rows)
+
+
+def _one_step(cfg, sd, inputs, targets, dev, tf32=False, dtype=None, features=False):
+    """One train-mode forward, loss and backward of a fresh model from ``sd``
+    on ``dev`` (``dtype`` float64 for the CPU's own reading): the loss, every
+    parameter's gradient and every BatchNorm buffer after it, on the host."""
+    import copy
+
+    import torch
+
+    from audioyolo_tpu_torch.device import set_fp32_posture
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.train_cli import make_loss
+
+    model = AudioDetectionModel.from_config(cfg, 2)
+    model.load_state_dict(copy.deepcopy(sd))
+    model = model.to(dev).train()
+    loss_fn = make_loss(cfg, 2, None)
+    if dtype is not None:
+        model = model.to(dtype)
+        loss_fn.anchors = {k: a.to(dtype) for k, a in loss_fn.anchors.items()}
+        inputs = inputs.to(dtype)
+        targets = {k: v.to(dtype) if v.is_floating_point() else v for k, v in targets.items()}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        x = inputs.to(dev)
+        preds = model(features=x) if features else model(x)
+        loss, _ = loss_fn(preds, {k: v.to(dev) for k, v in targets.items()})
+        loss.backward()
+        return (loss.item(),
+                {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()},
+                {k: b.detach().double().cpu() for k, b in model.named_buffers() if "running" in k})
+    finally:
+        set_fp32_posture()
+
+
+def _compare_steps(run, ref):
+    """The readings of TRAIN_BODY_BOUNDS for ``run`` against ``ref`` (each
+    an ``_one_step`` result), with the worst tensor of each kind."""
+    import numpy as np
+    import torch
+
+    g, gr = run[1], ref[1]
+    gmax = max(t.abs().max().item() for t in gr.values())
+    zero = [k for k in gr if k.endswith("conv.conv.bias")
+            and f"{k[:-len('conv.conv.bias')]}norm.weight" in gr]
+    live = [k for k in gr if k not in zero]
+    rel = {k: ((g[k] - gr[k]).abs().max() / gr[k].abs().max()).item() for k in live}
+    flat, flat_ref = (torch.cat([d[k].flatten() for k in live]) for d in (g, gr))
+    bn = {k: ((run[2][k] - ref[2][k]).abs().max() / ref[2][k].abs().max()).item() for k in ref[2]}
+    vals = list(rel.values())
+    return dict(loss=abs(run[0] - ref[0]) / abs(ref[0]), grad_median=float(np.median(vals)),
+                grad_p90=float(np.percentile(vals, 90)),
+                grad_l2=((flat - flat_ref).norm() / flat_ref.norm()).item(),
+                grad_zero=max(max(g[k].abs().max().item(), gr[k].abs().max().item())
+                              for k in zero) / gmax,
+                bn=max(bn.values()), worst_grad=max(rel, key=rel.get),
+                worst_grad_rel=max(vals), worst_bn=max(bn, key=bn.get), n_live=len(live),
+                n_zero=len(zero))
+
+
+def _unpadded_clip(cfg, seed):
+    """60 s of PCM16 noise with a 440 Hz and a 1200 Hz tone, no zero tail."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sr = cfg.sample_rate
+    x = 0.01 * rng.standard_normal(cfg.clip_samples)
+    for f, a, b in ((440.0, 0.08, 0.28), (1200.0, 0.5, 0.68)):
+        i, j = int(a * cfg.clip_samples), int(b * cfg.clip_samples)
+        x[i:j] += 0.4 * np.sin(2 * np.pi * f * np.arange(j - i) / sr)
+    return np.clip(np.round(x * 32768), -32768, 32767).astype(np.int16)
+
+
+def phase_training(dev, card):
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import serve, train_cli
+    from audioyolo_tpu_torch.data.loader import BatchLoader
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+    from audioyolo_tpu_torch.train import TrainerPipeline
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="ayt_train_")
+    try:
+        cfg = _train_config(tmp)
+        tc = cfg.raw["train_config"]
+        t0 = time.perf_counter()
+        _write_train_dataset(tc["dataset_path"], cfg)
+        log(f"[training] synthetic dataset: {TRAIN_CLIPS} train + {EVAL_CLIPS} eval clips of "
+            f"{cfg.sample_duration:.0f} s at {cfg.sample_rate} Hz in {time.perf_counter() - t0:.1f} s")
+
+        # one epoch through the CLI's run(), one through the trainer itself
+        counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                    nms_kernel.greedy_suppress_unblocked)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli_trainer = train_cli.run(cfg, device=dev)
+        cli_s = time.perf_counter() - t0
+        after_cli = mel_kernel.fused_mel_power.launches
+        train_ds, eval_ds = train_cli.resolve_datasets(cfg)
+        model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1))
+        trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
+                                  tc["optimizer_config"], tc["lr_scheduler_config"],
+                                  model_path=os.path.join(tmp, "direct"), device=dev)
+        kw = dict(transfer_dtype="int16", frame_fn=model.frontend.frame_host)
+        train_loader = BatchLoader(train_ds, BATCH, seed=5, **kw)
+        eval_loader = BatchLoader(eval_ds, BATCH, shuffle=False, **kw)
+        t0 = time.perf_counter()
+        tm = trainer.train(train_loader, verbose=True)
+        em = trainer.evaluate(eval_loader, verbose=True)
+        direct_s = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        bs = int(tc["batch_size"])
+        cli_forwards = -(-len(train_ds) // bs) + -(-len(eval_ds) // bs)
+        forwards = cli_forwards + len(train_loader) + len(eval_loader)
+        log(f"[training] one epoch via train_cli.run {cli_s:.1f} s (data, model, trainer, save), "
+            f"via the trainer {direct_s:.1f} s; launches {counts}, forward passes {forwards} "
+            f"({cli_forwards} via the CLI)")
+        assert after_cli == cli_forwards and counts["fused_mel_power"] == forwards, counts
+        assert counts["greedy_suppress_blocked"] == counts["greedy_suppress_unblocked"] == 0
+        res["train_launches"] = counts["fused_mel_power"]
+        for where, m in (("cli train", cli_trainer.train_metrics[-1]),
+                         ("cli eval", cli_trainer.eval_metrics[-1]), ("train", tm), ("eval", em)):
+            _check_epoch_metrics(where, m)
+
+        # the saved model (best eval loss) serves
+        saved = os.path.join(tc["model_path"], "AudioDetectionModel.pt")
+        state = serve.build_app_state(cfg, model_path=saved,
+                                      class_map_path=os.path.join(tc["class_map_path"],
+                                                                  "class_map.json"),
+                                      batch_size=BATCH, device=dev)
+        fe = state["infer_fn"].model.frontend
+        clips = np.zeros((2, cfg.clip_samples), np.int16)
+        packed = state["infer_fn"](torch.from_numpy(fe.frame_host(clips)).to(dev)).cpu()
+        assert packed.shape[::2] == (2, 6) and torch.isfinite(packed).all()
+        log(f"[training] saved model {saved} ({os.path.getsize(saved) / 1e6:.1f} MB) loads into "
+            f"the server and serves; classes {state['idx2class']}")
+        del state
+
+        # the loss falls on one fixed batch
+        batch = next(iter(BatchLoader(train_ds, BATCH, shuffle=False, prefetch=0, **kw)))
+        x, t = trainer.put_batch(batch)
+        losses = torch.stack([trainer.train_step(x, t) for _ in range(10)])[:, 0].tolist()
+        log(f"[training] 10 steps on one fixed B={BATCH} batch: aggregate loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} ({', '.join(f'{v:.4f}' for v in losses)})")
+        assert losses[-1] < losses[0], losses
+        res.update(loss_first=losses[0], loss_last=losses[-1])
+
+        # one step on the card against the CPU, B=2, dropout 0, same weights:
+        # the body on kernel 1's feature image, then the whole path from frames
+        raw0 = cfg.to_dict()
+        raw0["dropout"] = 0.0
+        cfg0 = type(cfg)(raw0)
+        model0 = AudioDetectionModel.from_config(cfg0, 2, generator=torch.Generator().manual_seed(3))
+        sd, fe0 = model0.state_dict(), model0.frontend
+        targets = {k: torch.from_numpy(batch[k][:2]) for k in ("classes", "centers", "widths",
+                                                              "valid")}
+        padded = torch.from_numpy(np.ascontiguousarray(batch["audio"][:2]))
+        unpadded = torch.from_numpy(fe0.frame_host(np.stack([_unpadded_clip(cfg0, s)
+                                                             for s in (1, 2)])))
+        fe_card = copy.deepcopy(fe0).to(dev)
+        feats = {}
+        for name, framed in (("training clips", padded), ("unpadded clips", unpadded)):
+            with torch.no_grad():
+                f_cpu, f_card = fe0(framed), fe_card(framed.to(dev)).cpu()
+            d = (f_card - f_cpu).abs()
+            mel_rel = (d[..., 0].max() / f_cpu[..., 0].abs().max()).item()
+            share = (d[..., 1] > 1e-3).float().mean().item()
+            log(f"[training] features card vs CPU, {name}: log-mel max |diff| / max |value| "
+                f"{mel_rel:.3e} (bound {FEATURE_MEL_REL_BOUND}); MFCC pixels off by > 1e-3 "
+                f"{share:.3e} (max |diff| {d[..., 1].max():.3e})")
+            assert mel_rel < FEATURE_MEL_REL_BOUND, (name, mel_rel)
+            feats[name] = (f_card, share)
+        assert feats["unpadded clips"][1] < FEATURE_MFCC_SHARE_BOUND, feats["unpadded clips"][1]
+
+        cpu = torch.device("cpu")
+        t0 = time.perf_counter()
+        f_card = feats["training clips"][0]
+        body_ref = _one_step(cfg0, sd, f_card, targets, cpu, features=True)
+        cpu_s = time.perf_counter() - t0
+        own = _compare_steps(body_ref, _one_step(cfg0, sd, f_card, targets, cpu,
+                                                 dtype=torch.float64, features=True))
+        path_ref = _one_step(cfg0, sd, unpadded, targets, cpu)
+        checks = (("body on kernel 1's features", TRAIN_BODY_BOUNDS, body_ref,
+                   dict(inputs=f_card, features=True)),
+                  ("whole path from unpadded frames", TRAIN_PATH_BOUNDS, path_ref,
+                   dict(inputs=unpadded)))
+        keys = ("loss", "grad_median", "grad_p90", "grad_l2", "grad_zero", "bn")
+        for name, bounds, ref, kw in checks:
+            fp32, tf32 = (_compare_steps(_one_step(cfg0, sd, targets=targets, dev=dev, tf32=f,
+                                                   **kw), ref) for f in (False, True))
+            log(f"[training] card vs CPU train step, B=2, {name} (CPU step {cpu_s:.1f} s): "
+                f"{fp32['n_live']} gradients, {fp32['n_zero']} zero in exact arithmetic; "
+                + "; ".join(f"{k} {fp32[k]:.3e} (bound {bounds[k]:g}; TF32 {tf32[k]:.3e})"
+                            for k in keys)
+                + f"; worst gradient {fp32['worst_grad_rel']:.3e} ({fp32['worst_grad']}), worst "
+                f"buffer {fp32['worst_bn']}")
+            bad = [k for k in keys if not fp32[k] < bounds[k]]
+            assert not bad, f"card vs CPU train step ({name}) outside its bounds: {bad}"
+            res[f"card_cpu_{'body' if bounds is TRAIN_BODY_BOUNDS else 'path'}"] = {
+                k: fp32[k] for k in keys}
+        log("[training] the CPU's own float32 body step against float64: "
+            + "; ".join(f"{k} {own[k]:.3e}" for k in keys))
+
+        # times at B=32
+        wav16 = np.stack([np.clip(np.round(train_ds[i]["audio"][0] * 32768.0), -32768, 32767)
+                          for i in range(BATCH)]).astype(np.int16)
+        t0 = time.perf_counter()
+        framed32 = model.frontend.frame_host(wav16)
+        t1 = time.perf_counter()
+        trainer.put_batch(dict(batch, audio=framed32))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = time_ms(lambda: trainer.train_step(x, t), iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        phase = np.zeros(3)
+        model.train()
+        for _ in range(5):
+            ev[0].record()
+            preds = model(x, generator=trainer.generator)
+            loss, _ = trainer.loss_fn(preds, t)
+            ev[1].record()
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            trainer.optimizer.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            phase += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        phase /= 5
+        audio_s = BATCH * cfg.sample_duration / step_ms * 1e3
+        log(f"[training B={BATCH}] train step {step_ms:.3f} ms on CUDA events (forward+loss "
+            f"{phase[0]:.3f}, backward {phase[1]:.3f}, optimizer {phase[2]:.3f}); "
+            f"{audio_s:.0f} training audio-s/s device-side; host framing {(t1 - t0) * 1e3:.1f} ms, "
+            f"host->device {(t2 - t1) * 1e3:.1f} ms (pinned, {framed32.nbytes / 1e6:.0f} MB int16); "
+            f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+        res.update(step_ms=step_ms, forward_ms=float(phase[0]), backward_ms=float(phase[1]),
+                   optimizer_ms=float(phase[2]), audio_s_per_s=audio_s, peak_gib=peak / 2**30,
+                   framing_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        (loss, _), fwd, fwd_ms = _profiled(lambda: trainer.loss_fn(model(x, generator=trainer.generator), t))
+        _, bwd, bwd_ms = _profiled(loss.backward)
+        _, opt, opt_ms = _profiled(trainer.optimizer.step)
+        for name, rows, total in (("forward+loss", fwd, fwd_ms), ("backward", bwd, bwd_ms),
+                                  ("optimizer", opt, opt_ms)):
+            log(f"[training B={BATCH}] {name}: {total:.3f} ms of kernels (profiler on)")
+            for ms, count, key in rows[:6]:
+                log(f"[training B={BATCH}]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+        k1 = sum(r[0] for r in fwd if "mel_power" in r[2] or "stage_frames" in r[2])
+        log(f"[training B={BATCH}] kernel 1 (staging + main pass) {k1:.3f} ms of the forward's "
+            f"{fwd_ms:.3f} ms of kernels")
+        res["kernel1_in_forward_ms"] = k1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -567,12 +950,13 @@ def main() -> int:
     mel = phase_mel(dev, card)
     nms = phase_nms(dev, card)
     counts = phase_serving(dev, card)
+    training = phase_training(dev, card)
 
     src = "audioyolo_tpu_torch/csrc/"
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
              replaces="audioyolo_tpu/ops/pallas_frontend.py:64",
-             launches=counts["fused_mel_power"],
+             launches=counts["fused_mel_power"], train_launches=training["train_launches"],
              **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "stage_ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")}),
         dict(name="greedy_suppress_blocked", route="cuda", source=src + "interval_nms.cu",
@@ -582,6 +966,7 @@ def main() -> int:
              replaces="audioyolo_tpu/ops/pallas_nms.py:61",
              launches=counts["greedy_suppress_unblocked"], **nms["greedy_suppress_unblocked"]),
     ]
+    log(json.dumps({"training": {k: v for k, v in training.items() if k != "train_launches"}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

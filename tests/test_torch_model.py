@@ -52,7 +52,7 @@ def test_batchnorm_eval_matches():
          "batch_stats": {"mean": rng.standard_normal(6).astype(np.float32),
                          "var": rng.uniform(0.5, 1.5, 6).astype(np.float32)}}
     ref = np.asarray(jl.BatchNorm().apply(v, jnp.asarray(x), use_running_average=True))
-    bn = tl.BatchNorm(6)
+    bn = tl.BatchNorm(6).eval()
     bn.load_state_dict(state_dict_from_jax(v))
     with torch.no_grad():
         out = bn(_nhwc_to_nchw(x)).numpy()
@@ -154,7 +154,7 @@ def test_bottleneck_backbone_matches_jax():
     v = _randomize(jax.jit(lambda r, f: jb.init(r, f, train=False))(
         jax.random.PRNGKey(1), jnp.asarray(x)), seed=2)
     ref = jax.jit(lambda vv, f: jb.apply(vv, f, train=False))(v, jnp.asarray(x))
-    tb = ResNetBackbone("Bottleneck", (1, 1, 1, 1))
+    tb = ResNetBackbone("Bottleneck", (1, 1, 1, 1)).eval()
     tb.load_state_dict(state_dict_from_jax(v))
     with torch.no_grad():
         out = tb(_nhwc_to_nchw(x))
