@@ -145,3 +145,14 @@ def load_config(path: Union[str, Dict[str, Any], Config, None] = None) -> Config
     _require(raw, "melspectrogram_config", path)
     _require(raw, "train_config", path)
     return Config(raw)
+
+
+def set_config_anchors(path: str, sm: List[float], md: List[float], lg: List[float]) -> None:
+    """Write fitted anchors back into a YAML config (the anchor CLI's hook)."""
+    with open(path, "r") as f:
+        raw = yaml.safe_load(f)
+    raw["anchors"]["sm"] = [float(x) for x in sm]
+    raw["anchors"]["md"] = [float(x) for x in md]
+    raw["anchors"]["lg"] = [float(x) for x in lg]
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)

@@ -17,7 +17,8 @@ epochs; the metric CSVs at the end. ``--device`` defaults to the CUDA card.
 Not ported: ``--data_parallel`` (DDP, ROADMAP A9), the device-resident
 dataset cache (``device_cache_dataset: on``), the metric plots, and the
 settings only the TPU has; each raises ``NotImplementedError``. The body runs
-in float32 whatever ``compute_dtype`` says (a bf16 body is ROADMAP A10).
+in float32 whatever ``compute_dtype`` says (a bf16 body is ROADMAP A10); ``run``
+warns when the config asks for another dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import glob
 import json
 import math
 import os
+import warnings
 from datetime import datetime
 
 import torch
@@ -97,6 +99,10 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
     cfg = load_config(cfg)
     tc = cfg.raw["train_config"]
     tpu_cfg = cfg.raw.get("tpu_config") or {}
+    compute_dtype = str(tpu_cfg.get("compute_dtype", "float32"))
+    if compute_dtype != "float32":
+        warnings.warn(f"tpu_config.compute_dtype is {compute_dtype}, but the port trains the "
+                      "body in float32 (a bf16 body is ROADMAP A10)", UserWarning, stacklevel=2)
     if str(tpu_cfg.get("device_cache_dataset", "auto")).lower() in ("true", "1", "on"):
         raise NotImplementedError(
             "device_cache_dataset: on (DeviceCachedLoader) is not ported yet (ROADMAP)")

@@ -41,7 +41,18 @@ Phases, each of which raises on failure:
    step's time at B=32 (CUDA events, host framing and copy on the host
    clock, audio-s/s, peak memory, the top kernels of the forward, the
    backward and the optimizer step from profiler traces);
-7. print one JSON line of every kernel's numbers, then the device line.
+7. inference and evaluation: the inference CLI (``inference_cli.main``) over
+   a directory of 40 files of 20 s at 22 050 Hz (two cross-file batches) and
+   2 of 60 s at 16 000 Hz (the threaded path, resampled on the card), over a
+   150 s file and over one file, with one set of seeded weights saved as the
+   port's ``.pt``, the JAX trainer's ``.msgpack`` and a reference
+   ``.pth.tar`` (``--ref_exact``); kernels 1 and 2 must launch; 4 threads
+   and 1 thread must give the same rows; a subset rerun on the CPU must give
+   the card's rows (a difference only where a confidence or an IoU lies
+   within 1e-3 of its threshold); the evaluator (``evaluate_cli.main``) on
+   phase 6's eval split and saved model, card against CPU (mAP gap bound);
+   the directory's wall time and audio-s/s;
+8. print one JSON line of every kernel's numbers, then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this file.
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,6 +107,12 @@ TRAIN_PATH_BOUNDS = dict(loss=1e-3, grad_median=0.3, grad_p90=0.5, grad_l2=0.4,
 FEATURE_MEL_REL_BOUND = 1e-3   # log-mel channel, max |diff| / max |value|
 FEATURE_MFCC_SHARE_BOUND = 2e-3  # MFCC pixels off by > 1e-3, unpadded audio
 TRAIN_CLIPS, EVAL_CLIPS = 64, 32
+# phase 7: the directory's short files (two cross-file batches of B=32: 32 + 8
+# windows); the share of rows that may differ card vs CPU, each difference a
+# flip of the confidence filter or the NMS; the evaluator's mAP gap card vs CPU
+INFER_SHORT_FILES = 40
+ROW_DIFFER_SHARE = 0.05
+MAP_GAP_BOUND = 0.02
 
 
 def log(*a):
@@ -735,9 +753,10 @@ def _unpadded_clip(cfg, seed):
     return np.clip(np.round(x * 32768), -32768, 32767).astype(np.int16)
 
 
-def phase_training(dev, card):
+def phase_training(dev, card, tmp):
+    """Writes its dataset, class map and saved model under ``tmp`` (phase 7
+    evaluates them)."""
     import copy
-    import shutil
 
     import numpy as np
     import torch
@@ -749,181 +768,486 @@ def phase_training(dev, card):
     from audioyolo_tpu_torch.train import TrainerPipeline
 
     res = {}
-    tmp = tempfile.mkdtemp(prefix="ayt_train_")
-    try:
-        cfg = _train_config(tmp)
-        tc = cfg.raw["train_config"]
-        t0 = time.perf_counter()
-        _write_train_dataset(tc["dataset_path"], cfg)
-        log(f"[training] synthetic dataset: {TRAIN_CLIPS} train + {EVAL_CLIPS} eval clips of "
-            f"{cfg.sample_duration:.0f} s at {cfg.sample_rate} Hz in {time.perf_counter() - t0:.1f} s")
+    cfg = _train_config(tmp)
+    tc = cfg.raw["train_config"]
+    t0 = time.perf_counter()
+    _write_train_dataset(tc["dataset_path"], cfg)
+    log(f"[training] synthetic dataset: {TRAIN_CLIPS} train + {EVAL_CLIPS} eval clips of "
+        f"{cfg.sample_duration:.0f} s at {cfg.sample_rate} Hz in {time.perf_counter() - t0:.1f} s")
 
-        # one epoch through the CLI's run(), one through the trainer itself
-        counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
-                    nms_kernel.greedy_suppress_unblocked)
+    # one epoch through the CLI's run(), one through the trainer itself
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                nms_kernel.greedy_suppress_unblocked)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    cli_trainer = train_cli.run(cfg, device=dev)
+    cli_s = time.perf_counter() - t0
+    after_cli = mel_kernel.fused_mel_power.launches
+    train_ds, eval_ds = train_cli.resolve_datasets(cfg)
+    model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1))
+    trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
+                              tc["optimizer_config"], tc["lr_scheduler_config"],
+                              model_path=os.path.join(tmp, "direct"), device=dev)
+    kw = dict(transfer_dtype="int16", frame_fn=model.frontend.frame_host)
+    train_loader = BatchLoader(train_ds, BATCH, seed=5, **kw)
+    eval_loader = BatchLoader(eval_ds, BATCH, shuffle=False, **kw)
+    t0 = time.perf_counter()
+    tm = trainer.train(train_loader, verbose=True)
+    em = trainer.evaluate(eval_loader, verbose=True)
+    direct_s = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    bs = int(tc["batch_size"])
+    cli_forwards = -(-len(train_ds) // bs) + -(-len(eval_ds) // bs)
+    forwards = cli_forwards + len(train_loader) + len(eval_loader)
+    log(f"[training] one epoch via train_cli.run {cli_s:.1f} s (data, model, trainer, save), "
+        f"via the trainer {direct_s:.1f} s; launches {counts}, forward passes {forwards} "
+        f"({cli_forwards} via the CLI)")
+    assert after_cli == cli_forwards and counts["fused_mel_power"] == forwards, counts
+    assert counts["greedy_suppress_blocked"] == counts["greedy_suppress_unblocked"] == 0
+    res["train_launches"] = counts["fused_mel_power"]
+    for where, m in (("cli train", cli_trainer.train_metrics[-1]),
+                     ("cli eval", cli_trainer.eval_metrics[-1]), ("train", tm), ("eval", em)):
+        _check_epoch_metrics(where, m)
+
+    # the saved model (best eval loss) serves
+    saved = os.path.join(tc["model_path"], "AudioDetectionModel.pt")
+    state = serve.build_app_state(cfg, model_path=saved,
+                                  class_map_path=os.path.join(tc["class_map_path"],
+                                                              "class_map.json"),
+                                  batch_size=BATCH, device=dev)
+    fe = state["infer_fn"].model.frontend
+    clips = np.zeros((2, cfg.clip_samples), np.int16)
+    packed = state["infer_fn"](torch.from_numpy(fe.frame_host(clips)).to(dev)).cpu()
+    assert packed.shape[::2] == (2, 6) and torch.isfinite(packed).all()
+    log(f"[training] saved model {saved} ({os.path.getsize(saved) / 1e6:.1f} MB) loads into "
+        f"the server and serves; classes {state['idx2class']}")
+    del state
+
+    # the loss falls on one fixed batch
+    batch = next(iter(BatchLoader(train_ds, BATCH, shuffle=False, prefetch=0, **kw)))
+    x, t = trainer.put_batch(batch)
+    losses = torch.stack([trainer.train_step(x, t) for _ in range(10)])[:, 0].tolist()
+    log(f"[training] 10 steps on one fixed B={BATCH} batch: aggregate loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({', '.join(f'{v:.4f}' for v in losses)})")
+    assert losses[-1] < losses[0], losses
+    res.update(loss_first=losses[0], loss_last=losses[-1])
+
+    # one step on the card against the CPU, B=2, dropout 0, same weights:
+    # the body on kernel 1's feature image, then the whole path from frames
+    raw0 = cfg.to_dict()
+    raw0["dropout"] = 0.0
+    cfg0 = type(cfg)(raw0)
+    model0 = AudioDetectionModel.from_config(cfg0, 2, generator=torch.Generator().manual_seed(3))
+    sd, fe0 = model0.state_dict(), model0.frontend
+    targets = {k: torch.from_numpy(batch[k][:2]) for k in ("classes", "centers", "widths",
+                                                          "valid")}
+    padded = torch.from_numpy(np.ascontiguousarray(batch["audio"][:2]))
+    unpadded = torch.from_numpy(fe0.frame_host(np.stack([_unpadded_clip(cfg0, s)
+                                                         for s in (1, 2)])))
+    fe_card = copy.deepcopy(fe0).to(dev)
+    feats = {}
+    for name, framed in (("training clips", padded), ("unpadded clips", unpadded)):
+        with torch.no_grad():
+            f_cpu, f_card = fe0(framed), fe_card(framed.to(dev)).cpu()
+        d = (f_card - f_cpu).abs()
+        mel_rel = (d[..., 0].max() / f_cpu[..., 0].abs().max()).item()
+        share = (d[..., 1] > 1e-3).float().mean().item()
+        log(f"[training] features card vs CPU, {name}: log-mel max |diff| / max |value| "
+            f"{mel_rel:.3e} (bound {FEATURE_MEL_REL_BOUND}); MFCC pixels off by > 1e-3 "
+            f"{share:.3e} (max |diff| {d[..., 1].max():.3e})")
+        assert mel_rel < FEATURE_MEL_REL_BOUND, (name, mel_rel)
+        feats[name] = (f_card, share)
+    assert feats["unpadded clips"][1] < FEATURE_MFCC_SHARE_BOUND, feats["unpadded clips"][1]
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    f_card = feats["training clips"][0]
+    body_ref = _one_step(cfg0, sd, f_card, targets, cpu, features=True)
+    cpu_s = time.perf_counter() - t0
+    own = _compare_steps(body_ref, _one_step(cfg0, sd, f_card, targets, cpu,
+                                             dtype=torch.float64, features=True))
+    path_ref = _one_step(cfg0, sd, unpadded, targets, cpu)
+    checks = (("body on kernel 1's features", TRAIN_BODY_BOUNDS, body_ref,
+               dict(inputs=f_card, features=True)),
+              ("whole path from unpadded frames", TRAIN_PATH_BOUNDS, path_ref,
+               dict(inputs=unpadded)))
+    keys = ("loss", "grad_median", "grad_p90", "grad_l2", "grad_zero", "bn")
+    for name, bounds, ref, kw in checks:
+        fp32, tf32 = (_compare_steps(_one_step(cfg0, sd, targets=targets, dev=dev, tf32=f,
+                                               **kw), ref) for f in (False, True))
+        log(f"[training] card vs CPU train step, B=2, {name} (CPU step {cpu_s:.1f} s): "
+            f"{fp32['n_live']} gradients, {fp32['n_zero']} zero in exact arithmetic; "
+            + "; ".join(f"{k} {fp32[k]:.3e} (bound {bounds[k]:g}; TF32 {tf32[k]:.3e})"
+                        for k in keys)
+            + f"; worst gradient {fp32['worst_grad_rel']:.3e} ({fp32['worst_grad']}), worst "
+            f"buffer {fp32['worst_bn']}")
+        bad = [k for k in keys if not fp32[k] < bounds[k]]
+        assert not bad, f"card vs CPU train step ({name}) outside its bounds: {bad}"
+        res[f"card_cpu_{'body' if bounds is TRAIN_BODY_BOUNDS else 'path'}"] = {
+            k: fp32[k] for k in keys}
+    log("[training] the CPU's own float32 body step against float64: "
+        + "; ".join(f"{k} {own[k]:.3e}" for k in keys))
+
+    # times at B=32
+    wav16 = np.stack([np.clip(np.round(train_ds[i]["audio"][0] * 32768.0), -32768, 32767)
+                      for i in range(BATCH)]).astype(np.int16)
+    t0 = time.perf_counter()
+    framed32 = model.frontend.frame_host(wav16)
+    t1 = time.perf_counter()
+    trainer.put_batch(dict(batch, audio=framed32))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = time_ms(lambda: trainer.train_step(x, t), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    phase = np.zeros(3)
+    model.train()
+    for _ in range(5):
+        ev[0].record()
+        preds = model(x, generator=trainer.generator)
+        loss, _ = trainer.loss_fn(preds, t)
+        ev[1].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        trainer.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        phase += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    phase /= 5
+    audio_s = BATCH * cfg.sample_duration / step_ms * 1e3
+    log(f"[training B={BATCH}] train step {step_ms:.3f} ms on CUDA events (forward+loss "
+        f"{phase[0]:.3f}, backward {phase[1]:.3f}, optimizer {phase[2]:.3f}); "
+        f"{audio_s:.0f} training audio-s/s device-side; host framing {(t1 - t0) * 1e3:.1f} ms, "
+        f"host->device {(t2 - t1) * 1e3:.1f} ms (pinned, {framed32.nbytes / 1e6:.0f} MB int16); "
+        f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    res.update(step_ms=step_ms, forward_ms=float(phase[0]), backward_ms=float(phase[1]),
+               optimizer_ms=float(phase[2]), audio_s_per_s=audio_s, peak_gib=peak / 2**30,
+               framing_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    (loss, _), fwd, fwd_ms = _profiled(lambda: trainer.loss_fn(model(x, generator=trainer.generator), t))
+    _, bwd, bwd_ms = _profiled(loss.backward)
+    _, opt, opt_ms = _profiled(trainer.optimizer.step)
+    for name, rows, total in (("forward+loss", fwd, fwd_ms), ("backward", bwd, bwd_ms),
+                              ("optimizer", opt, opt_ms)):
+        log(f"[training B={BATCH}] {name}: {total:.3f} ms of kernels (profiler on)")
+        for ms, count, key in rows[:6]:
+            log(f"[training B={BATCH}]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    k1 = sum(r[0] for r in fwd if "mel_power" in r[2] or "stage_frames" in r[2])
+    log(f"[training B={BATCH}] kernel 1 (staging + main pass) {k1:.3f} ms of the forward's "
+        f"{fwd_ms:.3f} ms of kernels")
+    res["kernel1_in_forward_ms"] = k1
+    return res
+
+
+def _jax_variables(sd):
+    """The port's train-form state dict as the JAX package's flax variables
+    (the inverse of ``models/from_jax.py``): OIHW conv weights under a
+    ``conv`` level become HWIO ``kernel``s, BatchNorm ``weight`` ``scale``,
+    the running statistics ``batch_stats`` ``mean``/``var``."""
+    import numpy as np
+
+    tree = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if not mods:  # the anchors
+            coll, name = "params", leaf
+        elif leaf.startswith("running_"):
+            coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif mods[-1] == "conv":
+            coll, name = "params", {"weight": "kernel", "bias": "bias"}[leaf]
+            if leaf == "weight":
+                a = a.transpose(2, 3, 1, 0)
+        else:
+            coll, name = "params", {"weight": "scale", "bias": "bias"}[leaf]
+        node = tree[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def _msgpack(obj) -> bytes:
+    """MessagePack as ``flax.serialization.msgpack_serialize`` writes it, for
+    dicts, strings, ints and ndarrays (extension type 1: a nested
+    ``(shape, dtype name, C-order bytes)``)."""
+    import struct
+
+    import numpy as np
+
+    def sized(small, codes, n):  # (fixed-size head or None, (8-, 16-, 32-bit heads), length)
+        if small is not None and n < 16:
+            return bytes([small | n])
+        for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (2**8, 2**16, 2**32)):
+            if code is not None and n < limit:
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(f"object of length {n} is too long")
+
+    if isinstance(obj, dict):
+        return sized(0x80, (None, 0xde, 0xdf), len(obj)) + b"".join(
+            _msgpack(k) + _msgpack(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return sized(0x90, (None, 0xdc, 0xdd), len(obj)) + b"".join(map(_msgpack, obj))
+    if isinstance(obj, str):
+        raw = obj.encode()
+        return (bytes([0xa0 | len(raw)]) if len(raw) < 32 else sized(None, (0xd9, 0xda, 0xdb), len(raw))) + raw
+    if isinstance(obj, bytes):
+        return sized(None, (0xc4, 0xc5, 0xc6), len(obj)) + obj
+    if isinstance(obj, int):
+        return bytes([obj]) if 0 <= obj < 128 else b"\xd3" + struct.pack(">q", obj)
+    if isinstance(obj, np.ndarray):
+        payload = _msgpack([list(obj.shape), obj.dtype.name, np.ascontiguousarray(obj).tobytes()])
+        return sized(None, (0xc7, 0xc8, 0xc9), len(payload)) + b"\x01" + payload
+    raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+class _RowRecorder:
+    """Records the unrounded rows each CSV is written from, keyed by
+    (run, file name), while it is entered (``infer/streaming.py`` writes every
+    CSV through its module's ``write_rows_csv``)."""
+
+    def __init__(self):
+        self.rows, self.run = {}, None
+
+    def __enter__(self):
+        from audioyolo_tpu_torch.infer import streaming
+
+        self._write = write = streaming.write_rows_csv
+
+        def record(all_rows, idx2class_map, audio_filepath, output_dir):
+            self.rows[(self.run, os.path.basename(audio_filepath))] = sorted(
+                (dict(r) for r in all_rows), key=lambda r: (r["start"], r["end"]))
+            return write(all_rows, idx2class_map, audio_filepath, output_dir)
+
+        streaming.write_rows_csv = record
+        return self
+
+    def __exit__(self, *exc):
+        from audioyolo_tpu_torch.infer import streaming
+
+        streaming.write_rows_csv = self._write
+
+
+def _iou(a, b):
+    inter = max(0.0, min(a["end"], b["end"]) - max(a["start"], b["start"]))
+    union = (a["end"] - a["start"]) + (b["end"] - b["start"]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3):
+    """Card rows against CPU rows of one file: each card row is matched to an
+    unmatched CPU row of the same class whose start and end lie within
+    ``tol`` s. An unmatched row is explained when its confidence is within
+    ``tol`` of ``conf_thr`` or its IoU with another row of either side is
+    within ``tol`` of ``iou_thr`` (a flip of the confidence filter or of the
+    NMS). Returns (matched, explained, unexplained rows, max |time diff| and
+    max |confidence diff| over the matched pairs)."""
+    left, matched, dt, dc = list(cpu), 0, 0.0, 0.0
+    unmatched = []
+    for r in card:
+        hit = next((q for q in left if q["class_idx"] == r["class_idx"]
+                    and abs(q["start"] - r["start"]) <= tol and abs(q["end"] - r["end"]) <= tol),
+                   None)
+        if hit is None:
+            unmatched.append(r)
+            continue
+        left.remove(hit)
+        matched += 1
+        dt = max(dt, abs(hit["start"] - r["start"]), abs(hit["end"] - r["end"]))
+        dc = max(dc, abs(hit["confidence"] - r["confidence"]))
+    unmatched += left
+    everyone = list(card) + list(cpu)
+    explained = [r for r in unmatched if abs(r["confidence"] - conf_thr) <= tol
+                 or any(q is not r and abs(_iou(q, r) - iou_thr) <= tol for q in everyone)]
+    unexplained = [r for r in unmatched if r not in explained]
+    return matched, len(explained), unexplained, dt, dc
+
+
+def phase_inference(dev, card, train_tmp):
+    """Phase 7: the inference CLI over a directory and single files in every
+    checkpoint format, card against CPU, threads against one thread, and the
+    evaluator on phase 6's eval split and saved model."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from audioyolo_tpu_torch import evaluate_cli, inference_cli
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.models.import_torch import port_key_to_torch_key
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+
+    cfg = _serving_config()
+    tmp = os.path.join(train_tmp, "inference")
+    audio_dir, sub_dir = os.path.join(tmp, "audio"), os.path.join(tmp, "cpu_subset")
+    os.makedirs(audio_dir)
+    os.makedirs(sub_dir)
+    raw = cfg.to_dict()
+    raw["train_config"]["class_map_path"] = os.path.join(ROOT, "idx2class_mapping")
+    cfg_path = os.path.join(tmp, "serving.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+
+    # at the shipped config: 20 s files at 22 050 Hz, 60 s at 16 000 Hz, 150 s
+    t0 = time.perf_counter()
+    dur, rate = cfg.sample_duration, cfg.sample_rate
+    durations = {}
+    for i in range(INFER_SHORT_FILES):
+        durations[f"s{i:02d}.wav"] = (dur / 3, rate)
+    for i in range(2):
+        durations[f"r16k_{i}.wav"] = (dur, 16000)
+    for i, (name, (sec, file_rate)) in enumerate(durations.items()):
+        _wav_bytes(os.path.join(audio_dir, name), sec, file_rate, seed=100 + i)
+    long_path = os.path.join(tmp, "long150.wav")
+    _wav_bytes(long_path, 2.5 * dur, rate, seed=7)
+    durations["long150.wav"] = (2.5 * dur, rate)
+    for name in ("s00.wav", "s01.wav", "s02.wav", "r16k_0.wav"):
+        shutil.copy(os.path.join(audio_dir, name), os.path.join(sub_dir, name))
+    audio_s = sum(sec for name, (sec, _) in durations.items() if name != "long150.wav")
+    log(f"[inference] {INFER_SHORT_FILES} files of {dur / 3:g} s at {rate} Hz, 2 of {dur:g} s at "
+        f"16000 Hz and one of {2.5 * dur:g} s written in {time.perf_counter() - t0:.1f} s")
+
+    # one set of seeded weights, saved three ways
+    gen = torch.Generator().manual_seed(0)
+    sd = _randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen).state_dict(), gen)
+    weights = {ext: os.path.join(tmp, f"weights{ext}") for ext in (".pt", ".msgpack", ".pth.tar")}
+    torch.save(sd, weights[".pt"])
+    with open(weights[".msgpack"], "wb") as f:
+        f.write(_msgpack(dict(_jax_variables(sd), opt_state={}, step=0)))
+    torch.save({"network_params": {port_key_to_torch_key(k): v for k, v in sd.items()}},
+               weights[".pth.tar"])
+
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                nms_kernel.greedy_suppress_unblocked)
+    conf_thr, iou_thr = 0.2, 0.1
+    rec = _RowRecorder()
+
+    def cli(run, *args, device=dev.type):
+        rec.run = run
+        t = time.perf_counter()
+        inference_cli.main(["--config", cfg_path, "--output_dir", os.path.join(tmp, "out", run),
+                            "--device", device, "--iou_threshold", str(iou_thr),
+                            "--conf_threshold", str(conf_thr), *args])
+        return time.perf_counter() - t
+
+    res = {}
+    with rec:
         for c in counters:
             c.launches = 0
-        t0 = time.perf_counter()
-        cli_trainer = train_cli.run(cfg, device=dev)
-        cli_s = time.perf_counter() - t0
-        after_cli = mel_kernel.fused_mel_power.launches
-        train_ds, eval_ds = train_cli.resolve_datasets(cfg)
-        model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1))
-        trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
-                                  tc["optimizer_config"], tc["lr_scheduler_config"],
-                                  model_path=os.path.join(tmp, "direct"), device=dev)
-        kw = dict(transfer_dtype="int16", frame_fn=model.frontend.frame_host)
-        train_loader = BatchLoader(train_ds, BATCH, seed=5, **kw)
-        eval_loader = BatchLoader(eval_ds, BATCH, shuffle=False, **kw)
-        t0 = time.perf_counter()
-        tm = trainer.train(train_loader, verbose=True)
-        em = trainer.evaluate(eval_loader, verbose=True)
-        direct_s = time.perf_counter() - t0
-        counts = {c.__name__: c.launches for c in counters}
-        bs = int(tc["batch_size"])
-        cli_forwards = -(-len(train_ds) // bs) + -(-len(eval_ds) // bs)
-        forwards = cli_forwards + len(train_loader) + len(eval_loader)
-        log(f"[training] one epoch via train_cli.run {cli_s:.1f} s (data, model, trainer, save), "
-            f"via the trainer {direct_s:.1f} s; launches {counts}, forward passes {forwards} "
-            f"({cli_forwards} via the CLI)")
-        assert after_cli == cli_forwards and counts["fused_mel_power"] == forwards, counts
-        assert counts["greedy_suppress_blocked"] == counts["greedy_suppress_unblocked"] == 0
-        res["train_launches"] = counts["fused_mel_power"]
-        for where, m in (("cli train", cli_trainer.train_metrics[-1]),
-                         ("cli eval", cli_trainer.eval_metrics[-1]), ("train", tm), ("eval", em)):
-            _check_epoch_metrics(where, m)
-
-        # the saved model (best eval loss) serves
-        saved = os.path.join(tc["model_path"], "AudioDetectionModel.pt")
-        state = serve.build_app_state(cfg, model_path=saved,
-                                      class_map_path=os.path.join(tc["class_map_path"],
-                                                                  "class_map.json"),
-                                      batch_size=BATCH, device=dev)
-        fe = state["infer_fn"].model.frontend
-        clips = np.zeros((2, cfg.clip_samples), np.int16)
-        packed = state["infer_fn"](torch.from_numpy(fe.frame_host(clips)).to(dev)).cpu()
-        assert packed.shape[::2] == (2, 6) and torch.isfinite(packed).all()
-        log(f"[training] saved model {saved} ({os.path.getsize(saved) / 1e6:.1f} MB) loads into "
-            f"the server and serves; classes {state['idx2class']}")
-        del state
-
-        # the loss falls on one fixed batch
-        batch = next(iter(BatchLoader(train_ds, BATCH, shuffle=False, prefetch=0, **kw)))
-        x, t = trainer.put_batch(batch)
-        losses = torch.stack([trainer.train_step(x, t) for _ in range(10)])[:, 0].tolist()
-        log(f"[training] 10 steps on one fixed B={BATCH} batch: aggregate loss {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f} ({', '.join(f'{v:.4f}' for v in losses)})")
-        assert losses[-1] < losses[0], losses
-        res.update(loss_first=losses[0], loss_last=losses[-1])
-
-        # one step on the card against the CPU, B=2, dropout 0, same weights:
-        # the body on kernel 1's feature image, then the whole path from frames
-        raw0 = cfg.to_dict()
-        raw0["dropout"] = 0.0
-        cfg0 = type(cfg)(raw0)
-        model0 = AudioDetectionModel.from_config(cfg0, 2, generator=torch.Generator().manual_seed(3))
-        sd, fe0 = model0.state_dict(), model0.frontend
-        targets = {k: torch.from_numpy(batch[k][:2]) for k in ("classes", "centers", "widths",
-                                                              "valid")}
-        padded = torch.from_numpy(np.ascontiguousarray(batch["audio"][:2]))
-        unpadded = torch.from_numpy(fe0.frame_host(np.stack([_unpadded_clip(cfg0, s)
-                                                             for s in (1, 2)])))
-        fe_card = copy.deepcopy(fe0).to(dev)
-        feats = {}
-        for name, framed in (("training clips", padded), ("unpadded clips", unpadded)):
-            with torch.no_grad():
-                f_cpu, f_card = fe0(framed), fe_card(framed.to(dev)).cpu()
-            d = (f_card - f_cpu).abs()
-            mel_rel = (d[..., 0].max() / f_cpu[..., 0].abs().max()).item()
-            share = (d[..., 1] > 1e-3).float().mean().item()
-            log(f"[training] features card vs CPU, {name}: log-mel max |diff| / max |value| "
-                f"{mel_rel:.3e} (bound {FEATURE_MEL_REL_BOUND}); MFCC pixels off by > 1e-3 "
-                f"{share:.3e} (max |diff| {d[..., 1].max():.3e})")
-            assert mel_rel < FEATURE_MEL_REL_BOUND, (name, mel_rel)
-            feats[name] = (f_card, share)
-        assert feats["unpadded clips"][1] < FEATURE_MFCC_SHARE_BOUND, feats["unpadded clips"][1]
-
-        cpu = torch.device("cpu")
-        t0 = time.perf_counter()
-        f_card = feats["training clips"][0]
-        body_ref = _one_step(cfg0, sd, f_card, targets, cpu, features=True)
-        cpu_s = time.perf_counter() - t0
-        own = _compare_steps(body_ref, _one_step(cfg0, sd, f_card, targets, cpu,
-                                                 dtype=torch.float64, features=True))
-        path_ref = _one_step(cfg0, sd, unpadded, targets, cpu)
-        checks = (("body on kernel 1's features", TRAIN_BODY_BOUNDS, body_ref,
-                   dict(inputs=f_card, features=True)),
-                  ("whole path from unpadded frames", TRAIN_PATH_BOUNDS, path_ref,
-                   dict(inputs=unpadded)))
-        keys = ("loss", "grad_median", "grad_p90", "grad_l2", "grad_zero", "bn")
-        for name, bounds, ref, kw in checks:
-            fp32, tf32 = (_compare_steps(_one_step(cfg0, sd, targets=targets, dev=dev, tf32=f,
-                                                   **kw), ref) for f in (False, True))
-            log(f"[training] card vs CPU train step, B=2, {name} (CPU step {cpu_s:.1f} s): "
-                f"{fp32['n_live']} gradients, {fp32['n_zero']} zero in exact arithmetic; "
-                + "; ".join(f"{k} {fp32[k]:.3e} (bound {bounds[k]:g}; TF32 {tf32[k]:.3e})"
-                            for k in keys)
-                + f"; worst gradient {fp32['worst_grad_rel']:.3e} ({fp32['worst_grad']}), worst "
-                f"buffer {fp32['worst_bn']}")
-            bad = [k for k in keys if not fp32[k] < bounds[k]]
-            assert not bad, f"card vs CPU train step ({name}) outside its bounds: {bad}"
-            res[f"card_cpu_{'body' if bounds is TRAIN_BODY_BOUNDS else 'path'}"] = {
-                k: fp32[k] for k in keys}
-        log("[training] the CPU's own float32 body step against float64: "
-            + "; ".join(f"{k} {own[k]:.3e}" for k in keys))
-
-        # times at B=32
-        wav16 = np.stack([np.clip(np.round(train_ds[i]["audio"][0] * 32768.0), -32768, 32767)
-                          for i in range(BATCH)]).astype(np.int16)
-        t0 = time.perf_counter()
-        framed32 = model.frontend.frame_host(wav16)
-        t1 = time.perf_counter()
-        trainer.put_batch(dict(batch, audio=framed32))
+        walls = {}
+        for run, extra in (("dir", ["--num_concurrency", "4"]),
+                           ("dir_framed", ["--num_concurrency", "4", "--framed_input"]),
+                           ("dir_serial", ["--num_concurrency", "1"])):
+            walls[run] = cli(run, "--model_path", weights[".pt"], "--audio_dir", audio_dir, *extra)
+        t = time.perf_counter()
+        _, _, busy_ms = _profiled(lambda: cli("dir_profiled", "--model_path", weights[".pt"],
+                                              "--audio_dir", audio_dir, "--framed_input"))
+        prof_wall = time.perf_counter() - t
+        log(f"[inference] the framed directory run under the profiler: {busy_ms:.1f} ms of "
+            f"kernels in {prof_wall * 1e3:.0f} ms wall, the device busy {busy_ms / prof_wall / 1e3:.1%} "
+            f"of the run (model build included) [{card}]")
+        walls["long"] = cli("long", "--model_path", weights[".msgpack"], "--audio_filepath",
+                            long_path, "--framed_input")
+        walls["ref_exact"] = cli("ref_exact", "--model_path", weights[".pth.tar"],
+                                 "--audio_filepath", os.path.join(audio_dir, "s03.wav"),
+                                 "--ref_exact")
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats(dev)
-        step_ms = time_ms(lambda: trainer.train_step(x, t), iters=10, warmup=2)
-        peak = torch.cuda.max_memory_allocated(dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        phase = np.zeros(3)
-        model.train()
-        for _ in range(5):
-            ev[0].record()
-            preds = model(x, generator=trainer.generator)
-            loss, _ = trainer.loss_fn(preds, t)
-            ev[1].record()
-            trainer.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            ev[2].record()
-            trainer.optimizer.step()
-            ev[3].record()
-            torch.cuda.synchronize()
-            phase += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-        phase /= 5
-        audio_s = BATCH * cfg.sample_duration / step_ms * 1e3
-        log(f"[training B={BATCH}] train step {step_ms:.3f} ms on CUDA events (forward+loss "
-            f"{phase[0]:.3f}, backward {phase[1]:.3f}, optimizer {phase[2]:.3f}); "
-            f"{audio_s:.0f} training audio-s/s device-side; host framing {(t1 - t0) * 1e3:.1f} ms, "
-            f"host->device {(t2 - t1) * 1e3:.1f} ms (pinned, {framed32.nbytes / 1e6:.0f} MB int16); "
-            f"peak memory {peak / 2**30:.2f} GiB [{card}]")
-        res.update(step_ms=step_ms, forward_ms=float(phase[0]), backward_ms=float(phase[1]),
-                   optimizer_ms=float(phase[2]), audio_s_per_s=audio_s, peak_gib=peak / 2**30,
-                   framing_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3)
-        trainer.optimizer.zero_grad(set_to_none=True)
-        (loss, _), fwd, fwd_ms = _profiled(lambda: trainer.loss_fn(model(x, generator=trainer.generator), t))
-        _, bwd, bwd_ms = _profiled(loss.backward)
-        _, opt, opt_ms = _profiled(trainer.optimizer.step)
-        for name, rows, total in (("forward+loss", fwd, fwd_ms), ("backward", bwd, bwd_ms),
-                                  ("optimizer", opt, opt_ms)):
-            log(f"[training B={BATCH}] {name}: {total:.3f} ms of kernels (profiler on)")
-            for ms, count, key in rows[:6]:
-                log(f"[training B={BATCH}]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
-        k1 = sum(r[0] for r in fwd if "mel_power" in r[2] or "stage_frames" in r[2])
-        log(f"[training B={BATCH}] kernel 1 (staging + main pass) {k1:.3f} ms of the forward's "
-            f"{fwd_ms:.3f} ms of kernels")
-        res["kernel1_in_forward_ms"] = k1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        infer_counts = {c.__name__: c.launches for c in counters}
+        # what of a run's wall time is the model build (load, fold, to the card)
+        t = time.perf_counter()
+        inference_cli.build_inference(cfg_path, 2, weights[".pt"], iou_thr, conf_thr, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        for run in ("dir", "dir_framed", "dir_serial"):
+            log(f"[inference] CLI over the directory ({run}: {len(durations) - 1} files, "
+                f"{audio_s:.0f} audio-s, .pt, B={BATCH}): {walls[run]:.2f} s wall, "
+                f"{audio_s / walls[run]:.0f} audio-s/s, model build included (alone "
+                f"{build_s:.2f} s) [{card}]")
+        log(f"[inference] 150 s file (.msgpack, framed) {walls['long']:.2f} s, one file "
+            f"(.pth.tar, --ref_exact) {walls['ref_exact']:.2f} s; kernel launches in the CLI runs "
+            f"{infer_counts}")
+        for name in ("fused_mel_power", "greedy_suppress_blocked"):
+            assert infer_counts[name] > 0, f"{name} was not launched by inference_cli.main"
+
+        # what came out: one CSV per file, finite rows inside the padded file
+        for (run, name), rows in rec.rows.items():
+            sec = durations[name][0]
+            for r in rows:
+                assert r["class_idx"] in (0, 1) and 0.0 <= r["confidence"] <= 1.0, (run, name, r)
+                assert 0.0 <= r["start"] <= r["end"] <= -(-sec // dur) * dur, (run, name, r)
+        n_dir = len(durations) - 1
+        for run in ("dir", "dir_framed", "dir_serial"):
+            assert sum(1 for (r, _) in rec.rows if r == run) == n_dir, run
+        assert all(rec.rows[("dir", n)] == rec.rows[("dir_serial", n)] for n in durations
+                   if n != "long150.wav"), "rows of 4 threads differ from one thread's"
+        n_rows = sum(len(rec.rows[("dir", n)]) for n in durations if n != "long150.wav")
+        log(f"[inference] threaded path at num_concurrency 4 and 1: the same {n_rows} rows in "
+            f"{n_dir} files (the 16 kHz files ran on the threads)")
+
+        # the card against the CPU, before CSV rounding
+        t = time.perf_counter()
+        cli("cpu_sub", "--model_path", weights[".pt"], "--audio_dir", sub_dir, "--batch_size", "2",
+            device="cpu")
+        cli("cpu_long", "--model_path", weights[".msgpack"], "--audio_filepath", long_path,
+            "--framed_input", "--batch_size", "2", device="cpu")
+        cpu_s = time.perf_counter() - t
+    pairs = [(("dir", n), ("cpu_sub", n)) for n in sorted(os.listdir(sub_dir))]
+    pairs.append((("long", "long150.wav"), ("cpu_long", "long150.wav")))
+    total = {"matched": 0, "explained": 0, "rows": 0}
+    dt = dc = 0.0
+    for card_key, cpu_key in pairs:
+        m, e, bad, t_diff, c_diff = _compare_rows(rec.rows[card_key], rec.rows[cpu_key],
+                                                  conf_thr, iou_thr)
+        total["matched"] += m
+        total["explained"] += e
+        total["rows"] += max(len(rec.rows[card_key]), len(rec.rows[cpu_key]))
+        dt, dc = max(dt, t_diff), max(dc, c_diff)
+        log(f"[inference] card vs CPU rows, {card_key[1]}: {len(rec.rows[card_key])} / "
+            f"{len(rec.rows[cpu_key])}, {m} matched, {e} explained, {len(bad)} unexplained"
+            + (f": {bad[:3]}" if bad else ""))
+        assert not bad, f"card vs CPU rows of {card_key[1]} differ beyond a threshold flip"
+    differ = 1.0 - total["matched"] / max(total["rows"], 1)
+    log(f"[inference] card vs CPU row agreement {total['matched']}/{total['rows']} "
+        f"({1 - differ:.4f}); {total['explained']} rows differ, each by a confidence within 1e-3 "
+        f"of {conf_thr} or an IoU within 1e-3 of {iou_thr}; matched rows' times within "
+        f"{dt:.2e} s, confidences within {dc:.2e} (CPU runs {cpu_s:.1f} s at B=2)")
+    assert dt <= 1e-3 and differ <= ROW_DIFFER_SHARE, (dt, differ)
+
+    # the evaluator on phase 6's eval split and saved model, card then CPU
+    train_cfg = os.path.join(tmp, "train.yaml")
+    with open(train_cfg, "w") as f:
+        yaml.safe_dump(_train_config(train_tmp).to_dict(), f)
+    eval_args = ["--config", train_cfg, "--dataset_path", os.path.join(train_tmp, "data"),
+                 "--batch_size", str(BATCH)]
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    on_card = evaluate_cli.main(eval_args + ["--device", dev.type])
+    torch.cuda.synchronize()
+    card_eval_s = time.perf_counter() - t
+    eval_counts = {c.__name__: c.launches for c in counters}
+    t = time.perf_counter()
+    on_cpu = evaluate_cli.main(eval_args + ["--device", "cpu"])
+    cpu_eval_s = time.perf_counter() - t
+    gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_card if k.startswith("mAP")}
+    log(f"[evaluation] card {card_eval_s:.1f} s: {json.dumps(on_card)}")
+    log(f"[evaluation] CPU {cpu_eval_s:.1f} s: {json.dumps(on_cpu)}")
+    log(f"[evaluation] largest mAP gap card vs CPU {max(gaps.values()):.3e} (bound "
+        f"{MAP_GAP_BOUND}); kernel launches {eval_counts}")
+    assert on_card["num_ground_truth"] == on_cpu["num_ground_truth"] > 0
+    assert all(np.isfinite(on_card[k]) for k in gaps) and max(gaps.values()) <= MAP_GAP_BOUND, gaps
+    for name in ("fused_mel_power", "greedy_suppress_blocked"):
+        assert eval_counts[name] > 0, f"{name} was not launched by evaluate_cli.main"
+    res.update(infer_launches=infer_counts, eval_launches=eval_counts,
+               dir_wall_s=walls["dir"], dir_framed_wall_s=walls["dir_framed"],
+               dir_serial_wall_s=walls["dir_serial"], build_s=build_s,
+               dir_profiled_busy_ms=busy_ms, dir_profiled_wall_s=prof_wall,
+               dir_audio_s=audio_s, row_agreement=1 - differ, map_gap=max(gaps.values()),
+               map_card=on_card["mAP@0.5"], map_cpu=on_cpu["mAP@0.5"])
     return res
 
 
@@ -950,23 +1274,38 @@ def main() -> int:
     mel = phase_mel(dev, card)
     nms = phase_nms(dev, card)
     counts = phase_serving(dev, card)
-    training = phase_training(dev, card)
+    tmp = tempfile.mkdtemp(prefix="ayt_smoke_")
+    try:
+        training = phase_training(dev, card, tmp)
+        inference = phase_inference(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     src = "audioyolo_tpu_torch/csrc/"
+
+    def paths(name):
+        return dict(infer_launches=inference["infer_launches"][name],
+                    eval_launches=inference["eval_launches"][name])
+
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
              replaces="audioyolo_tpu/ops/pallas_frontend.py:64",
              launches=counts["fused_mel_power"], train_launches=training["train_launches"],
+             **paths("fused_mel_power"),
              **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "stage_ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")}),
         dict(name="greedy_suppress_blocked", route="cuda", source=src + "interval_nms.cu",
              replaces="audioyolo_tpu/ops/pallas_nms.py:172",
-             launches=counts["greedy_suppress_blocked"], **nms["greedy_suppress_blocked"]),
+             launches=counts["greedy_suppress_blocked"], **paths("greedy_suppress_blocked"),
+             **nms["greedy_suppress_blocked"]),
         dict(name="greedy_suppress_unblocked", route="cuda", source=src + "interval_nms.cu",
              replaces="audioyolo_tpu/ops/pallas_nms.py:61",
-             launches=counts["greedy_suppress_unblocked"], **nms["greedy_suppress_unblocked"]),
+             launches=counts["greedy_suppress_unblocked"], **paths("greedy_suppress_unblocked"),
+             **nms["greedy_suppress_unblocked"]),
     ]
     log(json.dumps({"training": {k: v for k, v in training.items() if k != "train_launches"}}))
+    log(json.dumps({"inference": {k: v for k, v in inference.items()
+                                  if k not in ("infer_launches", "eval_launches")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

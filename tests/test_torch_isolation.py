@@ -65,7 +65,7 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
     card present each raises instead of running on the CPU."""
     import torch
 
-    from audioyolo_tpu_torch import serve
+    from audioyolo_tpu_torch import evaluate_cli, inference_cli, serve
     from audioyolo_tpu_torch.config import Config
     from audioyolo_tpu_torch.device import resolve_device
     from audioyolo_tpu_torch.infer import make_inference_fn
@@ -81,4 +81,10 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
         make_inference_fn(model, model.state_dict())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_app_state(cfg, state_dict={})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference_cli.build_inference(cfg, 2, "model.pt", 0.1, 0.2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference_cli.main(["--model_path", "model.pt", "--audio_dir", "."])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_cli.main(["--dataset_path", ".", "--model_path", "model.pt"])
     assert resolve_device("cpu").type == "cpu"
