@@ -1,1 +1,2 @@
-"""Host-side audio IO."""
+"""Host-side audio IO: WAV reading, the native batch decoders, datasets and
+the batch loader."""

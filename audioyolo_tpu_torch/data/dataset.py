@@ -1,5 +1,5 @@
 """Clip dataset with fixed-capacity padded targets (port of
-``audioyolo_tpu/data/dataset.py``, numpy only).
+``audioyolo_tpu/data/dataset.py``), with the native batch decoders.
 
 Every clip gives ``max_targets`` target slots with a validity mask, so
 batches have one shape. Kept from the reference:
@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterable, List
 
 import numpy as np
 
+from . import native
 from .wavio import read_wav
 
 logger = logging.getLogger(__name__)
@@ -159,6 +160,34 @@ class AudioDataset:
         item = {"audio": audio.astype(np.float32)}
         item.update(self.targets(idx, span_samples))
         return item
+
+    # ---- native batch decode ------------------------------------------
+
+    def _native_spans(self, indices):
+        spans = [self.audio_span(int(i)) for i in indices]
+        return [s[0] for s in spans], [s[1] for s in spans], [s[2] for s in spans]
+
+    def load_audio_batch(self, indices, n_threads: int = 4) -> np.ndarray:
+        """A batch of annotated spans decoded by the native library into
+        one (B, 1, clip_samples) float32 buffer: ``__getitem__``'s audio."""
+        paths, offs, counts = self._native_spans(indices)
+        return native.load_batch(paths, offs, counts, out_len=self.clip_samples,
+                                 n_threads=n_threads)[:, None, :]
+
+    def load_audio_batch_i16(self, indices, n_threads: int = 4) -> np.ndarray:
+        """As :meth:`load_audio_batch`, quantized to int16 as the loader's
+        int16 transfer quantizes (mono PCM16 is read as it is)."""
+        paths, offs, counts = self._native_spans(indices)
+        counts = [min(c, self.clip_samples) for c in counts]
+        return native.load_batch_i16(paths, offs, counts, out_len=self.clip_samples,
+                                     n_threads=n_threads)[:, None, :]
+
+    def load_audio_batch_framed(self, indices, framer, n_threads: int = 4) -> np.ndarray:
+        """As :meth:`load_audio_batch_i16`, decoded straight into
+        ``framer``'s (B, n_ph, n_groups, frame_len) int16 frames."""
+        paths, offs, counts = self._native_spans(indices)
+        return native.load_batch_framed_i16(paths, offs, counts, clip_len=self.clip_samples,
+                                            framer=framer, n_threads=n_threads)
 
     # ---- utilities -----------------------------------------------------
 

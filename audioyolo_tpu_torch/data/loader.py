@@ -1,5 +1,5 @@
 """Host-side batch loader with a prefetch thread (port of
-``audioyolo_tpu/data/loader.py::BatchLoader``, numpy only).
+``audioyolo_tpu/data/loader.py::BatchLoader``).
 
 Batches are dicts of numpy arrays of one shape: ``audio`` and the target
 slots of ``data/dataset.py``. The shuffle order of epoch ``e`` is
@@ -13,9 +13,17 @@ slots of ``data/dataset.py``. The shuffle order of epoch ``e`` is
 
 ``transfer_dtype="int16"`` ships PCM16 (bit-exact for 16-bit sources; the
 frontend dequantises by 1/32768); ``frame_fn`` (``SpectralFrontend.
-frame_host``) frames each batch on the prefetch thread. Not ported: the
-native C++ decode, multi-host sharding (``shard=``) and the device-resident
-cache (``DeviceCachedLoader``).
+frame_host``) frames each batch on the prefetch thread. ``framer`` (a
+``FusedFrameDFT``, ``SpectralFrontend.fused``) implies
+``frame_fn=framer.frame_host`` and, with int16 transfers, decodes each batch
+from disk straight into int16 frames.
+
+A dataset with the native batch decoders (``AudioDataset``) is read in one
+native call per batch, in the JAX package's order: framed int16 (``framer``
+and int16), raw int16 (int16), float32; a concatenation of datasets is read
+item by item. The batches are bit-identical whichever path reads them, and a
+failed decode raises. Not ported: multi-host sharding (``shard=``) and the
+device-resident cache (``DeviceCachedLoader``).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from .dataset import AudioDataset
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 42,
                  last_batch: str = "partial", prefetch: int = 2,
-                 transfer_dtype: str = "float32", frame_fn=None):
+                 transfer_dtype: str = "float32", frame_fn=None, framer=None):
         if last_batch not in ("partial", "pad", "drop"):
             raise ValueError(f"unknown last_batch policy '{last_batch}'")
         if transfer_dtype not in ("float32", "int16"):
@@ -44,7 +52,8 @@ class BatchLoader:
         self.last_batch = last_batch
         self.prefetch = max(int(prefetch), 0)
         self.transfer_dtype = transfer_dtype
-        self.frame_fn = frame_fn
+        self.framer = framer
+        self.frame_fn = framer.frame_host if frame_fn is None and framer is not None else frame_fn
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -53,12 +62,38 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _make_batch(self, indices) -> Dict[str, np.ndarray]:
-        batch = AudioDataset.collate([self.dataset[int(i)] for i in indices])
+    def _targets_batch(self, indices) -> Dict[str, np.ndarray]:
+        """The target slots of a natively decoded batch (the decoded length
+        is the annotated span's, capped at the clip)."""
+        ds = self.dataset
+        items = [ds.targets(int(i), min(ds.audio_span(int(i))[2], ds.clip_samples))
+                 for i in indices]
+        return {k: np.stack([t[k] for t in items]) for k in items[0]}
+
+    def _native_audio(self, indices):
+        """(audio, framed) from the dataset's native batch decoders, or None
+        for a dataset without them."""
+        ds = self.dataset
+        if not hasattr(ds, "load_audio_batch_framed"):
+            return None
+        if self.transfer_dtype == "int16" and self.framer is not None:
+            return ds.load_audio_batch_framed(indices, self.framer), True
         if self.transfer_dtype == "int16":
-            batch["audio"] = np.clip(np.round(batch["audio"] * 32768.0), -32768,
-                                     32767).astype(np.int16)
-        if self.frame_fn is not None:
+            return ds.load_audio_batch_i16(indices), False
+        return ds.load_audio_batch(indices), False
+
+    def _make_batch(self, indices) -> Dict[str, np.ndarray]:
+        native = self._native_audio(indices)
+        if native is not None:
+            batch = self._targets_batch(indices)
+            batch["audio"], framed = native
+        else:
+            batch = AudioDataset.collate([self.dataset[int(i)] for i in indices])
+            framed = False
+            if self.transfer_dtype == "int16":
+                batch["audio"] = np.clip(np.round(batch["audio"] * 32768.0), -32768,
+                                         32767).astype(np.int16)
+        if self.frame_fn is not None and not framed:
             batch["audio"] = self.frame_fn(batch["audio"][:, 0, :])
         n = len(indices)
         if self.last_batch == "pad":

@@ -15,9 +15,11 @@ targets' time convention (the window's annotated span), so the number
 measures the task the model was trained on.
 
 The batches come from the port's ``BatchLoader`` (the JAX package's
-device-resident cache gives the same batches and is ROADMAP A8). ``--int8``
-raises ``NotImplementedError`` (ROADMAP A10); ``--framed_input`` raises when
-the config's frontend has no framer. ``--device`` defaults to the CUDA card.
+device-resident cache gives the same batches and is ROADMAP A8); with
+``--framed_input`` and ``transfer_dtype: int16`` it decodes each batch
+straight into int16 frames. ``--int8`` raises ``NotImplementedError`` (ROADMAP
+A10); ``--framed_input`` raises when the config's frontend has no framer.
+``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from .data.loader import BatchLoader
 from .device import resolve_device
 from .infer.decode import postprocess_detections, unpack_detections
 from .infer.eval_map import event_average_precision, event_map
-from .inference_cli import build_frame_fn, build_inference, refuse_unported
+from .inference_cli import build_inference, framed_frontend, refuse_unported
 from .serve import get_label_map
 from .train_cli import load_annotations
 
@@ -65,7 +67,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
-    frame_fn = build_frame_fn(cfg) if args.framed_input else None
+    framer = framed_frontend(cfg).fused if args.framed_input else None
     tc = cfg.raw["train_config"]
     annotator = args.annotator or tc["annotator"]
     class_map_path = args.class_map_path or os.path.join(tc["class_map_path"], "class_map.json")
@@ -84,7 +86,7 @@ def main(argv=None) -> dict:
                                args.conf_threshold, device=device)
     transfer_dtype = (cfg.raw.get("tpu_config") or {}).get("transfer_dtype", "float32")
     loader = BatchLoader(ds, batch_size, shuffle=False, last_batch="partial",
-                         transfer_dtype=transfer_dtype, frame_fn=frame_fn)
+                         transfer_dtype=transfer_dtype, framer=framer)
 
     detections, ground_truth = [], []
     clip = 0

@@ -10,14 +10,19 @@ with windows of as many files as it takes.
 
 Transfer: mono PCM16 files ship int16 to the device (dequantized there),
 other formats float32. A file at the model rate ships phase-grouped frames
-when a ``frame_fn`` is given; a file at another rate is resampled on the
-device and takes the waveform path. Chunks are read, framed and copied to the
-device on a producer thread (:func:`_prefetch_iter`) and dispatched two deep:
-chunk N+1 is queued on the device before chunk N's detections are copied
-back. Each copy to the device is synchronous (from pageable memory, on the
-device's default stream, which orders it before the forward that reads it),
-so no host buffer is reused while a copy from it is in flight. The JAX
-package's int8 transfer is not ported (ROADMAP A10).
+when a ``frame_fn`` is given (int16 windows through the native framer); a
+file at another rate is resampled on the device and takes the waveform path.
+Chunks are read, framed and copied to the device on a producer thread
+(:func:`_prefetch_iter`) and dispatched two deep: chunk N+1 is queued on the
+device before chunk N's detections are copied back.
+
+On the card every batch is written into a fresh pinned host tensor (the
+frames straight from the framer) and copied with ``non_blocking=True`` on
+the default stream, which orders the copy before the forward that reads it.
+No host buffer is reused while its copy is in flight: PyTorch's caching host
+allocator hands a freed pinned block out again only after the copies
+recorded on it have completed. The JAX package's int8 transfer is not ported
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -123,8 +128,32 @@ def _fetch(out) -> Dict[str, np.ndarray]:
     return unpack_detections(out.cpu().numpy())
 
 
+_TORCH_DTYPES = {np.dtype(np.int16): torch.int16, np.dtype(np.float32): torch.float32}
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+    """A host batch on ``device``: on the card through a fresh pinned copy,
+    sent ``non_blocking``."""
+    t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _frames_to_device(frame_fn: Callable, clips: np.ndarray,
+                      device: torch.device) -> torch.Tensor:
+    """``frame_fn(clips)`` on ``device``: on the card the frames are written
+    straight into a fresh pinned host tensor, then sent ``non_blocking``."""
+    if device.type != "cuda":
+        return torch.from_numpy(frame_fn(clips))
+    pinned: List[torch.Tensor] = []
+
+    def alloc(shape, dtype):
+        pinned.append(torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True))
+        return pinned[-1].numpy()
+
+    frame_fn(clips, alloc=alloc)
+    return pinned[0].to(device, non_blocking=True)
 
 
 def evaluate_audio(
@@ -202,7 +231,7 @@ def evaluate_audio(
                     [clips, np.zeros((batch_size - nclips, 1, sample_size), dtype)], axis=0)
             start_frame += chunk_frames
             if frame_fn is not None and resampler is None:
-                yield nclips, _to_device(frame_fn(clips[:, 0, :]), device)
+                yield nclips, _frames_to_device(frame_fn, clips[:, 0, :], device)
                 continue
             x = _to_device(clips, device)
             if resampler is not None:
@@ -324,7 +353,7 @@ def evaluate_files_batched(
             arr = np.concatenate(
                 [arr, np.zeros((batch_size - n,) + arr.shape[1:], arr.dtype)], axis=0)
         if frame_fn is not None:
-            return _to_device(frame_fn(arr), device)
+            return _frames_to_device(frame_fn, arr, device)
         return _to_device(arr[:, None, :], device)
 
     def batches():

@@ -8,7 +8,8 @@ Usage::
 
 Loads a checkpoint, folds every RepVGG block into its single-conv deploy form
 (``--no_fold`` keeps the branches; ``--ref_exact`` runs a reference checkpoint
-as the reference does, with per-branch activations and no fold), and streams
+as the reference does, with per-branch activations and no fold; ``--bf16``
+runs the backbone and neck in bfloat16 on the same float32 weights), and streams
 a file or a directory into one ``{start, end, class}`` CSV per file. A
 directory's files at the model rate are batched across files; files at other
 rates run on ``--num_concurrency`` threads (``infer/runner.py``).
@@ -18,16 +19,16 @@ dict (``train_cli`` writes it); ``.pth``/``.pth.tar`` a reference checkpoint
 (``models/import_torch.py``); ``.msgpack`` the JAX trainer's file
 (``models/flax_msgpack.py`` + ``models/from_jax.py``).
 
-Not ported, each raising ``NotImplementedError``: ``--bf16``, ``--int8`` and
-``--transfer int8`` (ROADMAP A10), ``--workers`` above 1 (the process pool,
-ROADMAP A11). ``--device`` defaults to the CUDA card.
+Not ported, each raising ``NotImplementedError``: ``--int8`` and ``--transfer
+int8`` (ROADMAP A10), ``--workers`` above 1 (the process pool, ROADMAP A11).
+``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -62,19 +63,22 @@ def load_model_state(model: AudioDetectionModel, model_path: str) -> Dict[str, t
 
 def build_inference(cfg, num_classes: int, model_path: str, iou_threshold: float,
                     conf_threshold: float, fold: bool = True, ref_exact: bool = False,
-                    device: DeviceLike = None) -> Callable[[torch.Tensor], torch.Tensor]:
+                    device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> Callable[[torch.Tensor], torch.Tensor]:
     """The packed-output inference function of a checkpoint on ``device``
     (default: the card). ``ref_exact=True`` runs a reference checkpoint in
     the form it was trained in: per-branch RepVGG activation and no fold
-    (folding is not exact under per-branch activation)."""
+    (folding is not exact under per-branch activation). ``dtype`` is the
+    body's compute dtype (``torch.bfloat16`` for ``--bf16``)."""
     dev = resolve_device(device)
     cfg = load_config(cfg)
     if ref_exact:
         fold = False
-    train_model = AudioDetectionModel.from_config(cfg, num_classes, branch_act=ref_exact)
+    train_model = AudioDetectionModel.from_config(cfg, num_classes, branch_act=ref_exact,
+                                                  dtype=dtype)
     state = load_model_state(train_model, model_path)
     if fold:
-        model = AudioDetectionModel.from_config(cfg, num_classes, deploy=True)
+        model = AudioDetectionModel.from_config(cfg, num_classes, deploy=True, dtype=dtype)
         state = fold_repvgg(state)
     else:
         model = train_model
@@ -83,23 +87,20 @@ def build_inference(cfg, num_classes: int, model_path: str, iou_threshold: float
                              packed=True, device=dev)
 
 
-def build_frame_fn(cfg) -> Callable:
-    """``--framed_input``'s host framer of the fused frontend path; raises
-    when the config's frontend has none (the flag is never dropped without a
-    word)."""
+def framed_frontend(cfg) -> SpectralFrontend:
+    """``--framed_input``'s frontend, whose ``fused`` framer frames on the
+    host; raises when the config's frontend has none (the flag is never
+    dropped without a word)."""
     fe = SpectralFrontend(load_config(cfg))
     if fe.fused is None:
         raise ValueError("--framed_input: this config's frontend has no fused framer "
                          "(it needs non-overlapping, uncentred frames, no taper and one "
                          "shared mel config)")
-    return fe.frame_host
+    return fe
 
 
-def refuse_unported(bf16: bool = False, int8: bool = False, transfer: str = "int16",
-                    workers: int = 1) -> None:
+def refuse_unported(int8: bool = False, transfer: str = "int16", workers: int = 1) -> None:
     """``NotImplementedError`` for the flags whose posture is not ported."""
-    if bf16:
-        raise NotImplementedError("--bf16 (a bfloat16 body) is not ported yet (ROADMAP A10)")
     if int8:
         raise NotImplementedError("--int8 (the int8 PTQ body) is not ported yet (ROADMAP A10)")
     if transfer == "int8":
@@ -132,7 +133,7 @@ def main(argv=None) -> None:
                         help="reference-exact forward for .pth checkpoints (per-branch "
                              "RepVGG activation, no fold)")
     parser.add_argument("--bf16", action="store_true",
-                        help="not ported: raises NotImplementedError (ROADMAP A10)")
+                        help="bfloat16 compute for the detector body")
     parser.add_argument("--int8", action="store_true",
                         help="not ported: raises NotImplementedError (ROADMAP A10)")
     parser.add_argument("--framed_input", action="store_true",
@@ -142,7 +143,7 @@ def main(argv=None) -> None:
                         help="host->device waveform format; int8 is not ported (ROADMAP A10)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    refuse_unported(args.bf16, args.int8, args.transfer, args.workers)
+    refuse_unported(args.int8, args.transfer, args.workers)
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
@@ -154,10 +155,11 @@ def main(argv=None) -> None:
         raise FileNotFoundError(f"{class_map_path} does not exist")
     idx2class = get_label_map(class_map_path)
 
-    frame_fn = build_frame_fn(cfg) if args.framed_input else None
+    frame_fn = framed_frontend(cfg).frame_host if args.framed_input else None
     infer_fn = build_inference(cfg, len(idx2class), model_path, args.iou_threshold,
                                args.conf_threshold, fold=not args.no_fold,
-                               ref_exact=args.ref_exact, device=device)
+                               ref_exact=args.ref_exact, device=device,
+                               dtype=torch.bfloat16 if args.bf16 else None)
     kwargs = dict(input_sample_rate=cfg.sample_rate, sample_duration=cfg.sample_duration,
                   batch_size=batch_size, idx2class_map=idx2class, frame_fn=frame_fn,
                   transfer=args.transfer)

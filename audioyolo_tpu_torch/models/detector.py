@@ -7,10 +7,15 @@ T/32 and ``num_anchors`` slots per cell (630 proposals per 60 s clip in the
 shipped config). Anchors are parameters normalized by ``sample_duration``;
 with ``train_anchors: false`` no gradient reaches them.
 
-``model.train()`` selects the train form (batch-statistics BatchNorm, dropout
-after the backbone's stem), ``model.eval()`` the serving form. The frontend
-has no trainable input, so it runs without autograd and the graph starts at
-the feature image.
+``model.train()`` selects the train form (batch-statistics BatchNorm,
+dropout), ``model.eval()`` the serving form. The frontend has no trainable
+input, so it runs without autograd and the graph starts at the feature image.
+
+``dtype`` is the compute dtype of the backbone and the neck (``None``:
+float32; ``torch.bfloat16`` is what the shipped config's ``compute_dtype``
+asks for). As in the JAX package the frontend runs as it always does, its
+feature image is cast to ``dtype``, and decode casts back to float32, so the
+NMS and the loss see float32. Parameters stay float32 in every dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from torch import nn
 
 from ..config import load_config
 from ..ops.frontend import SpectralFrontend
-from .backbone import ResNetBackbone
+from .backbone import CustomBackbone, ResNetBackbone
 from .layers import init_weights
 from .neck import MultiScaleFmapModule
 
@@ -49,7 +54,7 @@ def decode_scale(raw: torch.Tensor, anchors_sec: torch.Tensor, num_classes: int,
 
 
 class AudioDetectionModel(nn.Module):
-    """Frontend + ResNet backbone + YOLOv6 neck + decode.
+    """Frontend + backbone (``resnet`` or ``custom``) + YOLOv6 neck + decode.
 
     ``deploy=True`` declares the folded RepVGG form (see
     ``models/reparam.py::fold_repvgg``); ``branch_act=True`` the reference's
@@ -58,10 +63,12 @@ class AudioDetectionModel(nn.Module):
     """
 
     def __init__(self, config, num_classes: int, deploy: bool = False,
-                 branch_act: bool = False, generator: Optional[torch.Generator] = None):
+                 branch_act: bool = False, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = load_config(config)
         self.cfg = cfg
+        self.dtype = dtype
         self.num_classes = int(num_classes)
         self.out_channels = cfg.num_anchors * (3 + self.num_classes)
         self.frontend = SpectralFrontend(cfg)
@@ -73,26 +80,28 @@ class AudioDetectionModel(nn.Module):
             self.register_parameter(f"{key}_anchors", nn.Parameter(torch.from_numpy(norm)))
 
         backbone = cfg.raw.get("backbone", "resnet")
-        if backbone != "resnet":
-            raise NotImplementedError(
-                f"backbone '{backbone}' is not ported yet (ROADMAP, CustomBackbone)")
-        rc = dict(cfg.raw.get("resnet_config") or {})
-        self.feature_extractor = ResNetBackbone(
-            block=str(rc.get("block", "BasicBlock")),
-            block_layers=tuple(cfg.raw["block_layers"]),
-            dropout=float(cfg.raw.get("dropout", 0.0)))
+        common = dict(block_layers=tuple(cfg.raw["block_layers"]),
+                      dropout=float(cfg.raw.get("dropout", 0.0)), dtype=dtype)
+        if backbone == "resnet":
+            rc = dict(cfg.raw.get("resnet_config") or {})
+            self.feature_extractor = ResNetBackbone(block=str(rc.get("block", "BasicBlock")),
+                                                    **common)
+        elif backbone == "custom":
+            self.feature_extractor = CustomBackbone(**common)
+        else:
+            raise ValueError(f"unknown backbone type: {backbone}")
         self.multiscale_module = MultiScaleFmapModule(
             self.feature_extractor.fmap_channels, self.out_channels,
-            deploy=deploy, branch_act=branch_act)
+            deploy=deploy, branch_act=branch_act, dtype=dtype)
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
     @classmethod
     def from_config(cls, config, num_classes: int, deploy: bool = False,
-                    branch_act: bool = False,
-                    generator: Optional[torch.Generator] = None) -> "AudioDetectionModel":
+                    branch_act: bool = False, generator: Optional[torch.Generator] = None,
+                    dtype: Optional[torch.dtype] = None) -> "AudioDetectionModel":
         return cls(config, num_classes, deploy=deploy, branch_act=branch_act,
-                   generator=generator)
+                   generator=generator, dtype=dtype)
 
     def anchors_sec(self, key: str) -> torch.Tensor:
         a = getattr(self, f"{key}_anchors") * self.cfg.sample_duration
@@ -109,6 +118,8 @@ class AudioDetectionModel(nn.Module):
                 raise ValueError("provide either audio or features")
             with torch.no_grad():
                 features = self.frontend(audio)
+        if self.dtype is not None:
+            features = features.to(self.dtype)
         x = features.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
         n2, n3, n4 = self.multiscale_module(*self.feature_extractor(x, generator))
         spectral, dur = self.cfg.n_frames, self.cfg.sample_duration

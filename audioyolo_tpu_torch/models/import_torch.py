@@ -23,8 +23,8 @@ multiscale_module.cspsppf.conv_1_3_4.1.*    multiscale_module.cspsppf.conv3.*
 Both sides hold convolutions as OIHW, so nothing is transposed. BatchNorm
 ``weight``/``bias``/``running_*`` map straight across. The frontend buffers
 (resample kernel, mel filterbank, DCT, windows) are recomputed, not imported,
-and ``num_batches_tracked`` is ignored. The CustomBackbone keys translate,
-but the port has no CustomBackbone yet: building its model raises first.
+and ``num_batches_tracked`` is ignored. The CustomBackbone's keys translate
+the same way (``backbone: custom``).
 """
 
 from __future__ import annotations

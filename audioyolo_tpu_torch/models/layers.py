@@ -11,6 +11,16 @@ statistics in train mode (PyTorch's two-pass form), running statistics in
 eval mode. The JAX package's space-to-depth stem and its H=1 middle-row conv
 slice are exact TPU rewrites of a plain convolution, so the port runs the
 plain one.
+
+``dtype`` is the compute dtype, with the JAX package's semantics (``None``:
+no cast, the float32 body as it always ran). Parameters and BatchNorm
+statistics stay float32. A conv casts its input and its kernel to ``dtype``
+and adds its bias in ``dtype`` after the convolution; BatchNorm normalises in
+float32 and casts its output to ``dtype`` (one mixed-precision
+``F.batch_norm`` on a bf16 input: fewer launches, the same roundings); activations, pools, resizes,
+concatenations and residual adds run in whatever dtype reaches them. The
+casts are explicit, where the JAX package makes them: ``torch.autocast``
+would keep BatchNorm and the adds in other dtypes.
 """
 
 from __future__ import annotations
@@ -45,8 +55,10 @@ class BatchNorm(nn.Module):
     mean is near its running mean, and cancels where it is far from it.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
@@ -55,12 +67,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if x.dtype == self.dtype and x.dtype in (torch.bfloat16, torch.float16):
+            # one mixed-precision kernel: reads the bf16 input, normalises in
+            # float32 with the float32 statistics and affine, rounds once
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, True, self.momentum, self.eps)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return (x - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+                                self.bias, self.training, self.momentum, self.eps)
+        out_dtype = self.dtype or x.dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 kept
+        if self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                             self.bias, True, self.momentum, self.eps)
+        else:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            y = (x - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        return y.to(out_dtype)
 
 
 class _ConvParams(nn.Module):
@@ -76,14 +97,20 @@ class Conv2d(nn.Module):
     """Conv with explicit symmetric padding; parameters under ``.conv``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair,
-                 stride: IntPair = 1, padding: IntPair = 0, bias: bool = True):
+                 stride: IntPair = 1, padding: IntPair = 0, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = _pair(stride)
         self.padding = _pair(padding)
+        self.dtype = dtype
         self.conv = _ConvParams(in_ch, out_ch, _pair(kernel_size), bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.conv.weight, self.conv.bias, self.stride, self.padding)
+        w, b = self.conv.weight, self.conv.bias
+        if self.dtype is None:
+            return F.conv2d(x, w, b, self.stride, self.padding)
+        y = F.conv2d(x.to(self.dtype), w.to(self.dtype), None, self.stride, self.padding)
+        return y if b is None else y + b.to(self.dtype).view(1, -1, 1, 1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -109,13 +136,14 @@ class ConvNorm(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair, stride: IntPair = 1,
                  padding: Optional[IntPair] = None, bias: bool = True,
-                 act: Optional[Callable[[torch.Tensor], torch.Tensor]] = leaky_relu):
+                 act: Optional[Callable[[torch.Tensor], torch.Tensor]] = leaky_relu,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         if padding is None:
             padding = (kh // 2, kw // 2)
-        self.conv = Conv2d(in_ch, out_ch, (kh, kw), stride, padding, bias=bias)
-        self.norm = BatchNorm(out_ch)
+        self.conv = Conv2d(in_ch, out_ch, (kh, kw), stride, padding, bias=bias, dtype=dtype)
+        self.norm = BatchNorm(out_ch, dtype=dtype)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,18 +158,19 @@ class RepVGGBlock(nn.Module):
     (the reference's train form; not fold-exact)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: IntPair = 1,
-                 deploy: bool = False, branch_act: bool = False):
+                 deploy: bool = False, branch_act: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.deploy = deploy
         self.branch_act = branch_act
         s = _pair(stride)
         if deploy:
-            self.reparam = Conv2d(in_ch, out_ch, 3, s, 1, bias=True)
+            self.reparam = Conv2d(in_ch, out_ch, 3, s, 1, bias=True, dtype=dtype)
             return
-        self.conv3x3 = ConvNorm(in_ch, out_ch, 3, s, padding=1, bias=False, act=None)
-        self.conv1x1 = ConvNorm(in_ch, out_ch, 1, s, padding=0, bias=False, act=None)
+        self.conv3x3 = ConvNorm(in_ch, out_ch, 3, s, padding=1, bias=False, act=None, dtype=dtype)
+        self.conv1x1 = ConvNorm(in_ch, out_ch, 1, s, padding=0, bias=False, act=None, dtype=dtype)
         if s == (1, 1) and in_ch == out_ch:
-            self.identity = BatchNorm(in_ch)
+            self.identity = BatchNorm(in_ch, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.deploy:
@@ -159,10 +188,10 @@ class RepBlock(nn.Module):
     """n chained RepVGG blocks: ``conv1`` then ``block0`` .. ``block{n-2}``."""
 
     def __init__(self, in_ch: int, out_ch: int, n: int = 2, deploy: bool = False,
-                 branch_act: bool = False):
+                 branch_act: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n = n
-        kw = dict(deploy=deploy, branch_act=branch_act)
+        kw = dict(deploy=deploy, branch_act=branch_act, dtype=dtype)
         self.conv1 = RepVGGBlock(in_ch, out_ch, **kw)
         for i in range(n - 1):
             setattr(self, f"block{i}", RepVGGBlock(out_ch, out_ch, **kw))
@@ -204,12 +233,13 @@ class BiCModule(nn.Module):
     """Bi-directional concat fusion: lateral 1x1 on the current and shallower
     maps, x0.5 / x2 bilinear time rescale, concat, 1x1 out."""
 
-    def __init__(self, c1_ch: int, c0_ch: int, p2_ch: int, features: int, e: float = 0.5):
+    def __init__(self, c1_ch: int, c0_ch: int, p2_ch: int, features: int, e: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         c_h = int(features * e)
-        self.conv_c1 = ConvNorm(c1_ch, c_h, 1)
-        self.conv_c0 = ConvNorm(c0_ch, c_h, 1)
-        self.conv_out = ConvNorm(2 * c_h + p2_ch, features, 1)
+        self.conv_c1 = ConvNorm(c1_ch, c_h, 1, dtype=dtype)
+        self.conv_c0 = ConvNorm(c0_ch, c_h, 1, dtype=dtype)
+        self.conv_out = ConvNorm(2 * c_h + p2_ch, features, 1, dtype=dtype)
 
     def forward(self, c1: torch.Tensor, c0: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
         c1 = self.conv_c1(c1)
@@ -222,17 +252,19 @@ class BiCModule(nn.Module):
 class CSPSPPFModule(nn.Module):
     """CSP split + chained 5x5 SPPF max pools on the deepest map."""
 
-    def __init__(self, in_ch: int, features: int, e: float = 0.5, pool_k: int = 5):
+    def __init__(self, in_ch: int, features: int, e: float = 0.5, pool_k: int = 5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         c_h = int(features * e)
         self.pool_k = pool_k
-        self.conv1 = ConvNorm(in_ch, c_h, 1)
-        self.conv3 = ConvNorm(c_h, c_h, 3)
-        self.conv4 = ConvNorm(c_h, c_h, 1)
-        self.conv2 = ConvNorm(in_ch, c_h, 1)
-        self.conv5 = ConvNorm(4 * c_h, c_h, 1)
-        self.conv6 = ConvNorm(c_h, c_h, 3)
-        self.conv7 = ConvNorm(2 * c_h, features, 1)
+        kw = dict(dtype=dtype)
+        self.conv1 = ConvNorm(in_ch, c_h, 1, **kw)
+        self.conv3 = ConvNorm(c_h, c_h, 3, **kw)
+        self.conv4 = ConvNorm(c_h, c_h, 1, **kw)
+        self.conv2 = ConvNorm(in_ch, c_h, 1, **kw)
+        self.conv5 = ConvNorm(4 * c_h, c_h, 1, **kw)
+        self.conv6 = ConvNorm(c_h, c_h, 3, **kw)
+        self.conv7 = ConvNorm(2 * c_h, features, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.conv4(self.conv3(self.conv1(x)))

@@ -10,7 +10,7 @@ squeezed to per-cell sequences (B, grid, out_ch).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,18 +25,19 @@ def _pool_h(x: torch.Tensor) -> torch.Tensor:
 
 class MultiScaleFmapModule(nn.Module):
     def __init__(self, fmap_channels: Sequence[int], out_channels: int, c_h: int = 128,
-                 deploy: bool = False, branch_act: bool = False):
+                 deploy: bool = False, branch_act: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f1, f2, f3, f4 = fmap_channels
-        kw = dict(deploy=deploy, branch_act=branch_act)
-        self.cspsppf = CSPSPPFModule(f4, c_h)
-        self.bic3 = BiCModule(f3, f2, c_h, c_h)
+        kw = dict(deploy=deploy, branch_act=branch_act, dtype=dtype)
+        self.cspsppf = CSPSPPFModule(f4, c_h, dtype=dtype)
+        self.bic3 = BiCModule(f3, f2, c_h, c_h, dtype=dtype)
         self.rep_block3_1 = RepBlock(c_h, c_h, **kw)
-        self.bic2 = BiCModule(f2, f1, c_h, c_h)
+        self.bic2 = BiCModule(f2, f1, c_h, c_h, dtype=dtype)
         self.rep_block2_1 = RepBlock(c_h, out_channels, **kw)
-        self.conv2_downsample = ConvNorm(out_channels, c_h, 3, stride=(1, 2))
+        self.conv2_downsample = ConvNorm(out_channels, c_h, 3, stride=(1, 2), dtype=dtype)
         self.rep_block3_2 = RepBlock(2 * c_h, out_channels, **kw)
-        self.conv3_downsample = ConvNorm(out_channels, c_h, 3, stride=(1, 2))
+        self.conv3_downsample = ConvNorm(out_channels, c_h, 3, stride=(1, 2), dtype=dtype)
         self.rep_block4_1 = RepBlock(2 * c_h, out_channels, **kw)
 
     def forward(self, fmap1, fmap2, fmap3, fmap4) -> Tuple[torch.Tensor, ...]:

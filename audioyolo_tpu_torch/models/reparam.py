@@ -4,7 +4,9 @@
 The 3x3+BN, 1x1+BN and identity-BN branches of every block fold into one
 biased 3x3 conv under ``<block>.reparam.conv``. The fold is weight-load work:
 it runs on CPU float32 tensors, in the JAX package's order of operations,
-before the weights move to the card.
+before the weights move to the card. The folded weights stay float32 in every
+compute dtype: a bf16 body casts them in its convolutions, as the JAX package
+serves float32 folded parameters with ``dtype=bfloat16``.
 """
 
 from __future__ import annotations

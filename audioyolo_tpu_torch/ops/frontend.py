@@ -317,15 +317,16 @@ class SpectralFrontend(nn.Module):
                 self.register_buffer("fused_c", torch.from_numpy(self.fused.c),
                                      persistent=False)
 
-    def frame_host(self, audio: np.ndarray) -> np.ndarray:
+    def frame_host(self, audio: np.ndarray, alloc=None) -> np.ndarray:
         """Host framing for the fused path: (B, S) or (B, 1, S) raw audio
-        (float or int16) -> (B, n_ph, n_groups, frame_len), same dtype."""
+        (float or int16) -> (B, n_ph, n_groups, frame_len), same dtype
+        (``FusedFrameDFT.frame_host``; int16 takes the native framer)."""
         if self.fused is None:
             raise ValueError("fused frontend path not available for this config")
         audio = np.asarray(audio)
         if audio.ndim == 3:
             audio = audio[:, 0, :]
-        return self.fused.frame_host(audio)
+        return self.fused.frame_host(audio, alloc=alloc)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         """``audio``: (B, S) or (B, 1, S) waveform at the dataset rate, or

@@ -10,8 +10,9 @@ window ``x[span*g + off_r : span*g + off_r + F]`` through ``C_r``. The host
 frames the raw audio into (B, n_ph, n_groups, frame_len) and the device runs
 one GEMM per phase.
 
-The port frames with numpy only; the JAX package's native C framer is later
-work.
+A 2-D int16 batch is framed by the native C memcpy loop
+(``data/native.py::frame_i16``); other input by the numpy form, which is
+also the tests' reference.
 """
 
 from __future__ import annotations
@@ -109,13 +110,30 @@ class FusedFrameDFT:
 
         self.n_groups = self.n_frames // self.n_ph
 
-    def frame_host(self, x: np.ndarray) -> np.ndarray:
+    def frame_host(self, x: np.ndarray, alloc=None) -> np.ndarray:
         """(..., L) raw audio -> (..., n_ph, n_groups, frame_len), any dtype.
 
         Zero-pads ``width`` samples left (the resampler's context) and what
-        the last windows need on the right; each phase is a reshape view plus
-        a tail slice, and ``np.stack`` makes the one copy.
+        the last windows need on the right. A (B, L) int16 batch takes the
+        native framer; otherwise each phase is a reshape view plus a tail
+        slice, and ``np.stack`` makes the one copy. ``alloc(shape, dtype)``,
+        when given, returns the array the frames are written into (a pinned
+        host buffer, say) and is what this returns.
         """
+        shape = x.shape[:-1] + (self.n_ph, self.n_groups, self.frame_len)
+        out = None if alloc is None else alloc(shape, x.dtype)
+        if x.ndim == 2 and x.dtype == np.int16:
+            from ..data import native
+
+            return native.frame_i16(x, self, out=out)
+        framed = self.frame_numpy(x)
+        if out is None:
+            return framed
+        out[...] = framed
+        return out
+
+    def frame_numpy(self, x: np.ndarray) -> np.ndarray:
+        """:meth:`frame_host`'s numpy form, for any input."""
         lead = x.shape[:-1]
         L = x.shape[-1]
         need = int(self.offsets.max()) + self.n_groups * self.span

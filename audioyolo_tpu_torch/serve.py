@@ -16,11 +16,12 @@ Requests are served one at a time (one device, one lock).
 
 Usage:
   python -m audioyolo_tpu_torch.serve --model_path weights.pt \
-      [--config config/config.yaml] [--port 8700]
+      [--config config/config.yaml] [--port 8700] [--bf16]
 
 ``--model_path`` is a ``torch.save``d train-form state dict of the port's
 ``AudioDetectionModel`` (``models/from_jax.py`` converts JAX variables); it
-is folded to the deploy form at load.
+is folded to the deploy form at load. ``--bf16`` runs the backbone and neck
+in bfloat16 on the same float32 weights.
 """
 
 from __future__ import annotations
@@ -52,11 +53,12 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
                     state_dict: Optional[Dict[str, torch.Tensor]] = None,
                     class_map_path: Optional[str] = None, batch_size: int = 0,
                     iou_threshold: float = 0.1, conf_threshold: float = 0.2,
-                    device: DeviceLike = None) -> dict:
+                    device: DeviceLike = None, dtype: Optional[torch.dtype] = None) -> dict:
     """Load the model and build the inference function once.
 
     Weights come from ``state_dict`` (train form, in memory) or else from
-    ``model_path``. ``device`` defaults to the card.
+    ``model_path``. ``device`` defaults to the card; ``dtype`` is the body's
+    compute dtype (``torch.bfloat16`` for ``--bf16``).
     """
     dev = resolve_device(device)
     cfg = load_config(config)
@@ -67,7 +69,8 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
         if not model_path:
             raise ValueError("give a state_dict or a model_path")
         state_dict = torch.load(model_path, map_location="cpu", weights_only=True)
-    model = AudioDetectionModel.from_config(cfg, num_classes=len(idx2class), deploy=True)
+    model = AudioDetectionModel.from_config(cfg, num_classes=len(idx2class), deploy=True,
+                                            dtype=dtype)
     keep_k = int((cfg.raw.get("tpu_config") or {}).get("nms_keep", 128))
     infer_fn = make_inference_fn(model, fold_repvgg(state_dict), iou_threshold,
                                  conf_threshold, keep_k=keep_k, packed=True, device=dev)
@@ -171,12 +174,13 @@ def main() -> None:
     p.add_argument("--batch_size", type=int, default=0, metavar="")
     p.add_argument("--iou_threshold", type=float, default=0.1, metavar="")
     p.add_argument("--conf_threshold", type=float, default=0.2, metavar="")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute for the detector body")
     args = p.parse_args()
 
     state = build_app_state(
         args.config, model_path=args.model_path, class_map_path=args.class_map_path or None,
         batch_size=args.batch_size, iou_threshold=args.iou_threshold,
-        conf_threshold=args.conf_threshold)
+        conf_threshold=args.conf_threshold, dtype=torch.bfloat16 if args.bf16 else None)
     httpd = serve(state, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port} "
           f"(classes: {list(state['idx2class'].values())})")

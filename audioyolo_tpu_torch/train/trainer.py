@@ -3,7 +3,9 @@
 ``train_step`` runs the train-mode forward (kernel 1 computes the frontend
 on the card in the ``default`` + ``pallas_frontend: on`` posture), the loss
 with its metrics, the backward pass, the optimizer step and the EMA update,
-and returns the (10,) metric vector, which stays on the device. An epoch
+and returns the (10,) metric vector, which stays on the device. The body runs
+in the model's compute dtype; parameters, gradients, Adam's moments, the EMA
+and every checkpoint stay float32 whatever it is. An epoch
 fetches its metrics once, as one stacked tensor; nothing in the step waits
 for the host. Batches go to the card one ahead of the step that uses them,
 from pinned host memory with ``non_blocking`` copies.

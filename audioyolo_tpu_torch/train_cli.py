@@ -14,11 +14,16 @@ saved (``<model_path>/AudioDetectionModel.pt``, a train-form state dict that
 controller stepped, and a resume checkpoint every ``checkpoint_every``
 epochs; the metric CSVs at the end. ``--device`` defaults to the CUDA card.
 
+``tpu_config.compute_dtype: bfloat16`` (or ``bf16``) trains a bfloat16 body
+(``models/layers.py``); parameters, Adam's moments, the EMA and the
+checkpoints stay float32 either way, so a checkpoint does not depend on the
+dtype. With ``transfer_dtype: int16`` and the fused framer the loaders decode
+each batch straight into int16 frames in one native call
+(``data/native.py``).
+
 Not ported: ``--data_parallel`` (DDP, ROADMAP A9), the device-resident
 dataset cache (``device_cache_dataset: on``), the metric plots, and the
-settings only the TPU has; each raises ``NotImplementedError``. The body runs
-in float32 whatever ``compute_dtype`` says (a bf16 body is ROADMAP A10); ``run``
-warns when the config asks for another dtype.
+settings only the TPU has; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ import glob
 import json
 import math
 import os
-import warnings
 from datetime import datetime
 
 import torch
@@ -90,6 +94,13 @@ def make_loss(cfg, num_classes: int, class_weights) -> AudioDetectionLoss:
         alpha=lc.get("alpha"), gamma=lc.get("gamma"))
 
 
+def compute_dtype(tpu_cfg) -> torch.dtype | None:
+    """The body's dtype for ``tpu_config.compute_dtype``: bfloat16 for
+    ``bfloat16``/``bf16``, else ``None`` (float32), as the JAX ``train.py``
+    reads it."""
+    return torch.bfloat16 if (tpu_cfg or {}).get("compute_dtype") in ("bfloat16", "bf16") else None
+
+
 def run(cfg, resume: bool = False, device: DeviceLike = None,
         data_parallel: bool = False) -> TrainerPipeline:
     """Train as the config says; returns the trainer (its model, metrics)."""
@@ -99,10 +110,6 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
     cfg = load_config(cfg)
     tc = cfg.raw["train_config"]
     tpu_cfg = cfg.raw.get("tpu_config") or {}
-    compute_dtype = str(tpu_cfg.get("compute_dtype", "float32"))
-    if compute_dtype != "float32":
-        warnings.warn(f"tpu_config.compute_dtype is {compute_dtype}, but the port trains the "
-                      "body in float32 (a bf16 body is ROADMAP A10)", UserWarning, stacklevel=2)
     if str(tpu_cfg.get("device_cache_dataset", "auto")).lower() in ("true", "1", "on"):
         raise NotImplementedError(
             "device_cache_dataset: on (DeviceCachedLoader) is not ported yet (ROADMAP)")
@@ -111,7 +118,8 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
     AudioDataset.save_label_map(train_ds.class2idx, tc["class_map_path"])
     num_classes = len(train_ds.class2idx)
     model = AudioDetectionModel.from_config(cfg, num_classes,
-                                            generator=torch.Generator().manual_seed(SEED))
+                                            generator=torch.Generator().manual_seed(SEED),
+                                            dtype=compute_dtype(tpu_cfg))
     trainer = TrainerPipeline(
         model, make_loss(cfg, num_classes, train_ds.get_class_weights()),
         tc["optimizer_config"], tc.get("lr_scheduler_config"),
@@ -122,11 +130,11 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
         remat=bool(tpu_cfg.get("train_remat", False)),
         prng_impl=tpu_cfg.get("train_prng") or None, device=device)
 
-    # frame on the loader's prefetch thread, so the card's frontend is GEMMs
+    # frame on the loader's prefetch thread, so the card's frontend is GEMMs;
+    # the framer also opens the native decode straight into int16 frames
     fe = model.frontend
-    frame_fn = (fe.frame_host if bool(tpu_cfg.get("framed_input", True)) and fe.fused is not None
-                else None)
-    kw = dict(transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), frame_fn=frame_fn)
+    framer = fe.fused if bool(tpu_cfg.get("framed_input", True)) else None
+    kw = dict(transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), framer=framer)
     batch_size = int(tc["batch_size"])
     train_loader = BatchLoader(train_ds, batch_size, shuffle=bool(tc.get("shuffle_samples", True)),
                                seed=SEED, **kw)

@@ -7,8 +7,9 @@ Run from the root of the repository, with no arguments:
 
 Phases, each of which raises on failure:
 
-1. build every kernel under ``audioyolo_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print the seconds taken;
+1. build every kernel under ``audioyolo_tpu_torch/csrc`` and the native
+   audio library (one compiler per source, all started together; the host
+   library's command line printed) and print the seconds taken;
 2. print the card's name and power limit (``nvidia-smi``);
 3. kernel 1 (``fused_mel_power``: a staging pass, then the TMA + ``wgmma``
    main pass) against its plain version on the card, at the serving batch
@@ -30,8 +31,10 @@ Phases, each of which raises on failure:
    profiler trace);
 6. training: a synthetic dataset (64 train and 32 eval clips of 60 s at
    22 050 Hz, two tone classes) written with the port's WAV writer; one
-   epoch of the shipped config through ``train_cli.run`` on the card and one
-   through the trainer directly (kernel 1 must launch once per training and
+   epoch of the shipped config through ``train_cli.run`` on the card (its
+   ``compute_dtype: bfloat16``: no warning, every conv output bf16, each
+   batch read by the native framed decode) and one through the trainer
+   directly on a float32 body (kernel 1 must launch once per training and
    evaluation forward, the 10 metrics finite, the saved model must load into
    the server); the loss must fall over 10 steps on one fixed batch; the
    frontend's features on the card against the CPU; one step at B=2 and
@@ -40,19 +43,40 @@ Phases, each of which raises on failure:
    kernel 1's features and for the whole path from frames; the train
    step's time at B=32 (CUDA events, host framing and copy on the host
    clock, audio-s/s, peak memory, the top kernels of the forward, the
-   backward and the optimizer step from profiler traces);
+   backward and the optimizer step from profiler traces); then the bf16
+   body: 10 steps on the fixed batch (the loss must fall), its step time
+   against float32's in turns, its peak memory beside float32's, its top
+   kernels;
 7. inference and evaluation: the inference CLI (``inference_cli.main``) over
    a directory of 40 files of 20 s at 22 050 Hz (two cross-file batches) and
    2 of 60 s at 16 000 Hz (the threaded path, resampled on the card), over a
    150 s file and over one file, with one set of seeded weights saved as the
    port's ``.pt``, the JAX trainer's ``.msgpack`` and a reference
-   ``.pth.tar`` (``--ref_exact``); kernels 1 and 2 must launch; 4 threads
-   and 1 thread must give the same rows; a subset rerun on the CPU must give
-   the card's rows (a difference only where a confidence or an IoU lies
-   within 1e-3 of its threshold); the evaluator (``evaluate_cli.main``) on
-   phase 6's eval split and saved model, card against CPU (mAP gap bound);
-   the directory's wall time and audio-s/s;
-8. print one JSON line of every kernel's numbers, then the device line.
+   ``.pth.tar`` (``--ref_exact``), and over the directory with ``--bf16``;
+   kernels 1 and 2 must launch; 4 threads and 1 thread must give the same
+   rows; the waveform and the framed directory runs under the profiler (the
+   device's busy share); a subset rerun on the CPU must give the card's rows
+   (a difference only where a confidence or an IoU lies within 1e-3 of its
+   threshold), and its ``--bf16`` rerun the card's ``--bf16`` rows (at bf16's
+   tolerances, beside the CPU's bf16 rows against float32's); the evaluator
+   (``evaluate_cli.main``) on phase 6's eval split and saved model, card
+   against CPU and a bf16 body against the float32 body (mAP gap bound); the
+   directory's wall time and audio-s/s;
+8. the native host path (``csrc/audio_io.cpp``): the framer bit-equal to
+   the numpy framer on a B=32 int16 batch, the framed decode of 32 dataset
+   spans bit-equal to read-then-frame, each with its host time; the framed
+   batch's copy to the card from pageable and from pinned memory, and
+   framing + copy as the streaming evaluator does them against the numpy
+   framer + pageable copy; the waveform batch's copy as the streaming
+   evaluator makes it against a plain pageable copy;
+9. the bf16 body through ``make_inference_fn`` at B=32: kernels 1 and 2
+   launched, its time against float32's, its top kernels; bf16 against the
+   float32 body on the card (matched rows, the largest confidence gap) and
+   against bf16 on the CPU at B=2 on the same features;
+10. ``backbone: custom`` (block_layers [2,2,2,2]): the B=32 serving forward
+    in float32 and bf16 (kernels 1 and 2 counted), card vs CPU at B=2 on the
+    same features (float32 body), two bf16 train steps;
+11. print one JSON line of every kernel's numbers, then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this file.
@@ -69,6 +93,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
@@ -113,6 +138,21 @@ TRAIN_CLIPS, EVAL_CLIPS = 64, 32
 INFER_SHORT_FILES = 40
 ROW_DIFFER_SHARE = 0.05
 MAP_GAP_BOUND = 0.02
+# the bf16 body against the float32 body on the same clips (phase 9): the
+# combined predictions' |diff| / max|value| at the 99th percentile; the share
+# of float32 detections that find a bf16 one of their class with the center
+# within BF16_ROW_TOL_S and the width within BF16_WIDTH_REL (the misses are NMS
+# flips among overlapping proposals of near-equal confidence: 0.886 of 44 on
+# the CPU at B=2), and the largest confidence gap of a matched pair
+BF16_PRED_P99, BF16_ROW_SHARE, BF16_ROW_TOL_S, BF16_WIDTH_REL = 1e-2, 0.75, 0.05, 0.05
+BF16_CONF_GAP = 0.05
+# phase 7's --bf16 rows, card against the CPU's bf16 rows over the subset:
+# start and end within BF16_ROW_TOL_S, a miss explained by a flip that a
+# confidence or IoU difference of BF16_FLIP_TOL can make (7x the largest
+# confidence gap of a matched bf16/float32 pair that phase 9 read, 2.9e-3);
+# a flip may free or suppress a neighbour that is near no threshold itself,
+# so up to BF16_UNEXPLAINED_SHARE of the rows may stay unexplained
+BF16_FLIP_TOL, BF16_UNEXPLAINED_SHARE = 0.02, 0.05
 
 
 def log(*a):
@@ -145,7 +185,10 @@ def phase_build():
 
     t0 = time.perf_counter()
     logs = build.build()
-    log(f"[build] {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s: {sorted(logs)}")
+    log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s: kernels "
+        f"{build.sources()}, host {build.host_sources()}")
+    for name in build.host_sources():
+        log(f"[build] {name}: {' '.join(build.command(name))}")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "wgmma", "setmaxnreg", "arning")):
@@ -762,8 +805,10 @@ def phase_training(dev, card, tmp):
     import torch
 
     from audioyolo_tpu_torch import serve, train_cli
+    from audioyolo_tpu_torch.data.dataset import AudioDataset
     from audioyolo_tpu_torch.data.loader import BatchLoader
     from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.models.layers import Conv2d
     from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
     from audioyolo_tpu_torch.train import TrainerPipeline
 
@@ -780,10 +825,28 @@ def phase_training(dev, card, tmp):
                 nms_kernel.greedy_suppress_unblocked)
     for c in counters:
         c.launches = 0
+    # the shipped compute_dtype (bfloat16) trains a bf16 body, with no
+    # warning; the loaders decode each batch straight into int16 frames
+    framed_reads = [0]
+    load_framed = AudioDataset.load_audio_batch_framed
+
+    def counted(self, *a, **k):
+        framed_reads[0] += 1
+        return load_framed(self, *a, **k)
+
+    AudioDataset.load_audio_batch_framed = counted
     t0 = time.perf_counter()
-    cli_trainer = train_cli.run(cfg, device=dev)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cli_trainer = train_cli.run(cfg, device=dev)
+    finally:
+        AudioDataset.load_audio_batch_framed = load_framed
     cli_s = time.perf_counter() - t0
     after_cli = mel_kernel.fused_mel_power.launches
+    dtype_warnings = [str(w.message) for w in caught if "dtype" in str(w.message)]
+    assert cfg.raw["tpu_config"]["compute_dtype"] == "bfloat16"
+    assert not dtype_warnings and cli_trainer.model.dtype == torch.bfloat16, dtype_warnings
     train_ds, eval_ds = train_cli.resolve_datasets(cfg)
     model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1))
     trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
@@ -805,7 +868,21 @@ def phase_training(dev, card, tmp):
         f"({cli_forwards} via the CLI)")
     assert after_cli == cli_forwards and counts["fused_mel_power"] == forwards, counts
     assert counts["greedy_suppress_blocked"] == counts["greedy_suppress_unblocked"] == 0
+    assert framed_reads[0] == cli_forwards, (framed_reads, cli_forwards)
     res["train_launches"] = counts["fused_mel_power"]
+    seen = set()
+    hooks = [m.register_forward_hook(lambda mod, inp, out: seen.add(out.dtype))
+             for m in cli_trainer.model.modules() if isinstance(m, Conv2d)]
+    fz = cli_trainer.model.frontend.fused
+    with torch.no_grad():
+        cli_trainer.model.eval()(torch.zeros((2, fz.n_ph, fz.n_groups, fz.frame_len),
+                                             dtype=torch.int16, device=dev))
+    for h in hooks:
+        h.remove()
+    log(f"[training] train_cli.run on compute_dtype {cfg.raw['tpu_config']['compute_dtype']}: "
+        f"no dtype warning, conv outputs {sorted(map(str, seen))} (forward hooks), the "
+        f"loaders' native framed decode read {framed_reads[0]} of {cli_forwards} batches")
+    assert seen == {torch.bfloat16}, seen
     for where, m in (("cli train", cli_trainer.train_metrics[-1]),
                      ("cli eval", cli_trainer.eval_metrics[-1]), ("train", tm), ("eval", em)):
         _check_epoch_metrics(where, m)
@@ -939,7 +1016,57 @@ def phase_training(dev, card, tmp):
     log(f"[training B={BATCH}] kernel 1 (staging + main pass) {k1:.3f} ms of the forward's "
         f"{fwd_ms:.3f} ms of kernels")
     res["kernel1_in_forward_ms"] = k1
+    res.update(_bf16_steps(cfg, train_ds, batch, lambda: trainer.train_step(x, t), peak, dev,
+                           card, tmp))
     return res
+
+
+def _bf16_steps(cfg, train_ds, batch, f32_step, f32_peak, dev, card, tmp):
+    """The bf16 body (the shipped ``compute_dtype``) through the trainer:
+    the loss must fall over 10 steps on the fixed B=32 batch; its step time
+    against the float32 step's (``f32_step``), timed in turns since the
+    host's speed drifts, its peak memory and its top kernels."""
+    import torch
+
+    from audioyolo_tpu_torch import train_cli
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.train import TrainerPipeline
+
+    tc = cfg.raw["train_config"]
+    model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1),
+                                            dtype=torch.bfloat16)
+    trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
+                              tc["optimizer_config"], tc["lr_scheduler_config"],
+                              model_path=os.path.join(tmp, "direct_bf16"), device=dev)
+    x, t = trainer.put_batch(batch)
+    losses = torch.stack([trainer.train_step(x, t) for _ in range(10)])[:, 0].tolist()
+    log(f"[training bf16] 10 steps on the fixed B={BATCH} batch: aggregate loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} ({', '.join(f'{v:.4f}' for v in losses)})")
+    assert losses[-1] < losses[0], losses
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.train_step(x, t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    turns = {"f32": [], "bf16": []}
+    for name, fn in (("f32", f32_step), ("bf16", lambda: trainer.train_step(x, t))) * 3:
+        turns[name].append(time_ms(fn, iters=10, warmup=2))
+    step_ms, f32_step_ms = min(turns["bf16"]), min(turns["f32"])
+    trainer.optimizer.zero_grad(set_to_none=True)
+    (loss, _), fwd, fwd_ms = _profiled(lambda: trainer.loss_fn(model(x, generator=trainer.generator), t))
+    _, bwd, bwd_ms = _profiled(loss.backward)
+    log(f"[training bf16 B={BATCH}] train step {step_ms:.3f} ms on CUDA events against "
+        f"float32's {f32_step_ms:.3f} (the least of three turns of 10 steps each: bf16 "
+        f"{', '.join(f'{v:.3f}' for v in turns['bf16'])}, float32 "
+        f"{', '.join(f'{v:.3f}' for v in turns['f32'])}), "
+        f"{BATCH * cfg.sample_duration / step_ms * 1e3:.0f} training "
+        f"audio-s/s device-side; peak memory {peak / 2**30:.2f} GiB (float32 {f32_peak / 2**30:.2f}); "
+        f"kernels forward+loss {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms (profiler on) [{card}]")
+    for name, rows in (("forward+loss", fwd), ("backward", bwd)):
+        for ms, count, key in rows[:6]:
+            log(f"[training bf16 B={BATCH}] {name} {ms:8.3f} ms  x{count:<4d} {key[:80]}")
+    return dict(bf16_loss_first=losses[0], bf16_loss_last=losses[-1], bf16_step_ms=step_ms,
+                f32_step_turns_ms=turns["f32"], bf16_step_turns_ms=turns["bf16"],
+                bf16_peak_gib=peak / 2**30, bf16_forward_kernels_ms=fwd_ms,
+                bf16_backward_kernels_ms=bwd_ms)
 
 
 def _jax_variables(sd):
@@ -1037,14 +1164,19 @@ def _iou(a, b):
     return inter / union if union > 0 else 0.0
 
 
-def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3):
+def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3, flip_tol=None):
     """Card rows against CPU rows of one file: each card row is matched to an
     unmatched CPU row of the same class whose start and end lie within
-    ``tol`` s. An unmatched row is explained when its confidence is within
-    ``tol`` of ``conf_thr`` or its IoU with another row of either side is
-    within ``tol`` of ``iou_thr`` (a flip of the confidence filter or of the
-    NMS). Returns (matched, explained, unexplained rows, max |time diff| and
-    max |confidence diff| over the matched pairs)."""
+    ``tol`` s. An unmatched row is explained by a flip that a difference of
+    ``flip_tol`` (default ``tol``) in a confidence or an IoU can make: its
+    confidence lies within ``flip_tol`` of ``conf_thr`` (the confidence
+    filter), its IoU with another row of either side within ``flip_tol`` of
+    ``iou_thr`` (a suppression), or a row of the other side of its class
+    overlaps it past ``iou_thr`` with a confidence within ``flip_tol`` (the
+    NMS took the two in the other order). Returns (matched, explained,
+    unexplained rows, max |time diff| and max |confidence diff| over the
+    matched pairs)."""
+    flip_tol = tol if flip_tol is None else flip_tol
     left, matched, dt, dc = list(cpu), 0, 0.0, 0.0
     unmatched = []
     for r in card:
@@ -1060,9 +1192,16 @@ def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3):
         dc = max(dc, abs(hit["confidence"] - r["confidence"]))
     unmatched += left
     everyone = list(card) + list(cpu)
-    explained = [r for r in unmatched if abs(r["confidence"] - conf_thr) <= tol
-                 or any(q is not r and abs(_iou(q, r) - iou_thr) <= tol for q in everyone)]
-    unexplained = [r for r in unmatched if r not in explained]
+
+    def swapped(r):
+        other = cpu if any(r is q for q in card) else card
+        return any(q["class_idx"] == r["class_idx"] and _iou(q, r) > iou_thr
+                   and abs(q["confidence"] - r["confidence"]) <= flip_tol for q in other)
+
+    explained = [r for r in unmatched if abs(r["confidence"] - conf_thr) <= flip_tol
+                 or any(q is not r and abs(_iou(q, r) - iou_thr) <= flip_tol for q in everyone)
+                 or swapped(r)]
+    unexplained = [r for r in unmatched if not any(r is q for q in explained)]
     return matched, len(explained), unexplained, dt, dc
 
 
@@ -1070,6 +1209,7 @@ def phase_inference(dev, card, train_tmp):
     """Phase 7: the inference CLI over a directory and single files in every
     checkpoint format, card against CPU, threads against one thread, and the
     evaluator on phase 6's eval split and saved model."""
+    import functools
     import shutil
 
     import numpy as np
@@ -1143,13 +1283,19 @@ def phase_inference(dev, card, train_tmp):
                            ("dir_framed", ["--num_concurrency", "4", "--framed_input"]),
                            ("dir_serial", ["--num_concurrency", "1"])):
             walls[run] = cli(run, "--model_path", weights[".pt"], "--audio_dir", audio_dir, *extra)
-        t = time.perf_counter()
-        _, _, busy_ms = _profiled(lambda: cli("dir_profiled", "--model_path", weights[".pt"],
-                                              "--audio_dir", audio_dir, "--framed_input"))
-        prof_wall = time.perf_counter() - t
-        log(f"[inference] the framed directory run under the profiler: {busy_ms:.1f} ms of "
-            f"kernels in {prof_wall * 1e3:.0f} ms wall, the device busy {busy_ms / prof_wall / 1e3:.1%} "
-            f"of the run (model build included) [{card}]")
+        walls["dir_bf16"] = cli("dir_bf16", "--model_path", weights[".pt"], "--audio_dir",
+                                audio_dir, "--num_concurrency", "4", "--bf16")
+        busy = {}
+        for run, extra in (("dir_profiled", ["--framed_input"]), ("dir_profiled_wave", [])):
+            t = time.perf_counter()
+            _, _, busy_ms = _profiled(lambda: cli(run, "--model_path", weights[".pt"],
+                                                  "--audio_dir", audio_dir, *extra))
+            busy[run] = (busy_ms, time.perf_counter() - t)
+            log(f"[inference] the {'framed' if extra else 'waveform'} directory run under the "
+                f"profiler: {busy_ms:.1f} ms of kernels in {busy[run][1] * 1e3:.0f} ms wall, the "
+                f"device busy {busy_ms / busy[run][1] / 1e3:.1%} of the run (model build "
+                f"included) [{card}]")
+        busy_ms, prof_wall = busy["dir_profiled"]
         walls["long"] = cli("long", "--model_path", weights[".msgpack"], "--audio_filepath",
                             long_path, "--framed_input")
         walls["ref_exact"] = cli("ref_exact", "--model_path", weights[".pth.tar"],
@@ -1162,7 +1308,7 @@ def phase_inference(dev, card, train_tmp):
         inference_cli.build_inference(cfg_path, 2, weights[".pt"], iou_thr, conf_thr, device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t
-        for run in ("dir", "dir_framed", "dir_serial"):
+        for run in ("dir", "dir_framed", "dir_serial", "dir_bf16"):
             log(f"[inference] CLI over the directory ({run}: {len(durations) - 1} files, "
                 f"{audio_s:.0f} audio-s, .pt, B={BATCH}): {walls[run]:.2f} s wall, "
                 f"{audio_s / walls[run]:.0f} audio-s/s, model build included (alone "
@@ -1180,13 +1326,21 @@ def phase_inference(dev, card, train_tmp):
                 assert r["class_idx"] in (0, 1) and 0.0 <= r["confidence"] <= 1.0, (run, name, r)
                 assert 0.0 <= r["start"] <= r["end"] <= -(-sec // dur) * dur, (run, name, r)
         n_dir = len(durations) - 1
-        for run in ("dir", "dir_framed", "dir_serial"):
+        for run in ("dir", "dir_framed", "dir_serial", "dir_bf16"):
             assert sum(1 for (r, _) in rec.rows if r == run) == n_dir, run
         assert all(rec.rows[("dir", n)] == rec.rows[("dir_serial", n)] for n in durations
                    if n != "long150.wav"), "rows of 4 threads differ from one thread's"
         n_rows = sum(len(rec.rows[("dir", n)]) for n in durations if n != "long150.wav")
         log(f"[inference] threaded path at num_concurrency 4 and 1: the same {n_rows} rows in "
             f"{n_dir} files (the 16 kHz files ran on the threads)")
+        # --bf16 beside the float32 body's rows over the directory (the
+        # card's bf16 rows are held to the CPU's below)
+        names = [n for n in durations if n != "long150.wav"]
+        n_f32 = sum(len(rec.rows[("dir", n)]) for n in names)
+        n_bf = sum(len(rec.rows[("dir_bf16", n)]) for n in names)
+        log(f"[inference] --bf16 over the directory: {n_bf} rows in {n_dir} files against the "
+            f"float32 body's {n_f32}")
+        assert n_bf > 0
 
         # the card against the CPU, before CSV rounding
         t = time.perf_counter()
@@ -1195,6 +1349,10 @@ def phase_inference(dev, card, train_tmp):
         cli("cpu_long", "--model_path", weights[".msgpack"], "--audio_filepath", long_path,
             "--framed_input", "--batch_size", "2", device="cpu")
         cpu_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cli("cpu_sub_bf16", "--model_path", weights[".pt"], "--audio_dir", sub_dir,
+            "--batch_size", "2", "--bf16", device="cpu")
+        cpu_bf16_s = time.perf_counter() - t
     pairs = [(("dir", n), ("cpu_sub", n)) for n in sorted(os.listdir(sub_dir))]
     pairs.append((("long", "long150.wav"), ("cpu_long", "long150.wav")))
     total = {"matched": 0, "explained": 0, "rows": 0}
@@ -1217,6 +1375,29 @@ def phase_inference(dev, card, train_tmp):
         f"{dt:.2e} s, confidences within {dc:.2e} (CPU runs {cpu_s:.1f} s at B=2)")
     assert dt <= 1e-3 and differ <= ROW_DIFFER_SHARE, (dt, differ)
 
+    # --bf16 on the card against --bf16 on the CPU over the subset, at bf16's
+    # tolerances; beside it, what bf16 rounding alone does to the same rows:
+    # the CPU's bf16 rows against the float32 rows (card = CPU, above)
+    def bf16_rows(a, b):
+        tot = dict(matched=0, explained=0, unexplained=0, rows=0)
+        for n in sorted(os.listdir(sub_dir)):
+            m, e, bad, _, _ = _compare_rows(rec.rows[(a, n)], rec.rows[(b, n)], conf_thr,
+                                            iou_thr, tol=BF16_ROW_TOL_S, flip_tol=BF16_FLIP_TOL)
+            for k, v in (("matched", m), ("explained", e), ("unexplained", len(bad)),
+                         ("rows", max(len(rec.rows[(a, n)]), len(rec.rows[(b, n)])))):
+                tot[k] += v
+        return tot
+
+    bf, yard = bf16_rows("dir_bf16", "cpu_sub_bf16"), bf16_rows("cpu_sub_bf16", "dir")
+    log(f"[inference] --bf16 card vs --bf16 CPU rows over the {len(os.listdir(sub_dir))}-file "
+        f"subset: {bf['matched']}/{bf['rows']} matched (start and end within {BF16_ROW_TOL_S} s), "
+        f"{bf['explained']} explained by a flip within {BF16_FLIP_TOL}, {bf['unexplained']} "
+        f"unexplained (bound {BF16_UNEXPLAINED_SHARE:.0%} of the rows); the CPU's bf16 rows "
+        f"against the float32 rows read {yard['matched']}/{yard['rows']} matched, "
+        f"{yard['explained']} explained, {yard['unexplained']} unexplained (CPU bf16 run "
+        f"{cpu_bf16_s:.1f} s)")
+    assert bf["rows"] > 0 and bf["unexplained"] <= BF16_UNEXPLAINED_SHARE * bf["rows"], bf
+
     # the evaluator on phase 6's eval split and saved model, card then CPU
     train_cfg = os.path.join(tmp, "train.yaml")
     with open(train_cfg, "w") as f:
@@ -1233,7 +1414,19 @@ def phase_inference(dev, card, train_tmp):
     t = time.perf_counter()
     on_cpu = evaluate_cli.main(eval_args + ["--device", "cpu"])
     cpu_eval_s = time.perf_counter() - t
+    # the evaluator on a bf16 body (evaluate_cli has no --bf16, as the JAX
+    # evaluate_model.py has none: its model builder is given the dtype here)
+    build_f32 = evaluate_cli.build_inference
+    evaluate_cli.build_inference = functools.partial(build_f32, dtype=torch.bfloat16)
+    try:
+        on_card_bf16 = evaluate_cli.main(eval_args + ["--device", dev.type])
+    finally:
+        evaluate_cli.build_inference = build_f32
     gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_card if k.startswith("mAP")}
+    gaps_bf16 = {k: abs(on_card_bf16[k] - on_card[k]) for k in gaps}
+    log(f"[evaluation] bf16 body on the card: {json.dumps(on_card_bf16)}; largest mAP gap "
+        f"against the float32 body {max(gaps_bf16.values()):.3e} (bound {MAP_GAP_BOUND})")
+    assert max(gaps_bf16.values()) <= MAP_GAP_BOUND, gaps_bf16
     log(f"[evaluation] card {card_eval_s:.1f} s: {json.dumps(on_card)}")
     log(f"[evaluation] CPU {cpu_eval_s:.1f} s: {json.dumps(on_cpu)}")
     log(f"[evaluation] largest mAP gap card vs CPU {max(gaps.values()):.3e} (bound "
@@ -1247,8 +1440,302 @@ def phase_inference(dev, card, train_tmp):
                dir_serial_wall_s=walls["dir_serial"], build_s=build_s,
                dir_profiled_busy_ms=busy_ms, dir_profiled_wall_s=prof_wall,
                dir_audio_s=audio_s, row_agreement=1 - differ, map_gap=max(gaps.values()),
-               map_card=on_card["mAP@0.5"], map_cpu=on_cpu["mAP@0.5"])
+               map_card=on_card["mAP@0.5"], map_cpu=on_cpu["mAP@0.5"],
+               dir_bf16_wall_s=walls["dir_bf16"], dir_bf16_rows=n_bf,
+               dir_profiled_wave_busy_ms=busy["dir_profiled_wave"][0],
+               dir_profiled_wave_wall_s=busy["dir_profiled_wave"][1],
+               map_card_bf16=on_card_bf16["mAP@0.5"], map_gap_bf16=max(gaps_bf16.values()),
+               bf16_card_cpu_rows=bf, bf16_cpu_f32_rows=yard)
     return res
+
+
+def _host_ms(fn, reps=5):
+    """Median host milliseconds of ``fn()`` (which synchronizes itself)."""
+    import statistics
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native(dev, card, train_tmp):
+    """Phase 8: the native host path (``csrc/audio_io.cpp``) on this
+    machine's CPU, bit for bit against the numpy path, with its times and
+    the pinned copy's."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import train_cli
+    from audioyolo_tpu_torch.data import native
+    from audioyolo_tpu_torch.data.wavio import read_wav
+    from audioyolo_tpu_torch.infer.streaming import _frames_to_device, _to_device
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+
+    cfg = _train_config(train_tmp)
+    fe = SpectralFrontend(cfg)
+    framer = fe.fused
+    log(f"[native] library {native.library()._name}")
+    rng = np.random.default_rng(4)
+    clips = np.clip(rng.standard_normal((BATCH, cfg.clip_samples)) * 3000, -32768,
+                    32767).astype(np.int16)
+    framed = native.frame_i16(clips, framer)
+    assert np.array_equal(framed, framer.frame_numpy(clips)), "native framing differs from numpy"
+    native_ms = _host_ms(lambda: native.frame_i16(clips, framer))
+    numpy_ms = _host_ms(lambda: framer.frame_numpy(clips), reps=3)
+    log(f"[native] frame_i16 of a B={BATCH} int16 batch {clips.shape} -> {framed.shape}: "
+        f"bit-equal to the numpy framer; {native_ms:.2f} ms native (2 threads), {numpy_ms:.2f} ms "
+        f"numpy (host clock, median) [{card}]")
+
+    train_ds, _ = train_cli.resolve_datasets(cfg)
+    spans = [train_ds.audio_span(i) for i in range(BATCH)]
+    paths, offs, counts = ([sp[k] for sp in spans] for k in range(3))
+    got = native.load_batch_framed_i16(paths, offs, counts, cfg.clip_samples, framer)
+    ref = []
+    for path, off, count in spans:
+        audio, _ = read_wav(path, frame_offset=off, num_frames=min(count, cfg.clip_samples))
+        mono = audio.mean(axis=0) if audio.shape[0] != 1 else audio[0]
+        q = np.clip(np.round(mono * 32768.0), -32768, 32767).astype(np.int16)
+        ref.append(np.pad(q, (0, cfg.clip_samples - q.shape[0])))
+    assert np.array_equal(got, framer.frame_numpy(np.stack(ref))), "framed decode differs"
+    load_ms = _host_ms(lambda: native.load_batch_framed_i16(paths, offs, counts,
+                                                            cfg.clip_samples, framer))
+    log(f"[native] load_batch_framed_i16 of {BATCH} dataset spans (60 s PCM16 files): bit-equal "
+        f"to read-then-frame; {load_ms:.2f} ms (4 threads, page cache warm) [{card}]")
+
+    def pageable():
+        torch.from_numpy(framed).to(dev)
+        torch.cuda.synchronize()
+
+    host = torch.from_numpy(framed).pin_memory()
+
+    def pinned():
+        host.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+
+    def streaming_path():  # what infer/streaming.py does per batch: frame into pinned, copy
+        _frames_to_device(fe.frame_host, clips, dev)
+        torch.cuda.synchronize()
+
+    def old_path():  # the numpy framer, then a pageable copy
+        torch.from_numpy(framer.frame_numpy(clips)).to(dev)
+        torch.cuda.synchronize()
+
+    pageable_ms, pinned_ms = _host_ms(pageable), _host_ms(pinned)
+    stream_ms, old_ms = _host_ms(streaming_path), _host_ms(old_path, reps=3)
+    mb = framed.nbytes / 1e6
+    log(f"[native] host -> device of the framed batch ({mb:.0f} MB int16): pageable "
+        f"{pageable_ms:.2f} ms ({mb / pageable_ms:.1f} GB/s), pinned non_blocking {pinned_ms:.2f} "
+        f"ms ({mb / pinned_ms:.1f} GB/s); native framing into a fresh pinned tensor + copy "
+        f"{stream_ms:.2f} ms against numpy framing + pageable copy {old_ms:.2f} ms (host clock, "
+        f"median) [{card}]")
+
+    # the waveform path's batch (B, 1, clip) int16: what streaming's _to_device
+    # does against a plain pageable copy, in turns, the later of two each
+    wave = clips[:, None, :]
+
+    def wave_streaming():
+        _to_device(wave, dev)
+        torch.cuda.synchronize()
+
+    def wave_pageable():
+        torch.from_numpy(wave).to(dev)
+        torch.cuda.synchronize()
+
+    wave_ms = {}
+    for name, fn in (("streaming", wave_streaming), ("pageable", wave_pageable)) * 2:
+        wave_ms[name] = _host_ms(fn, reps=7)
+    log(f"[native] host -> device of the waveform batch ({wave.nbytes / 1e6:.0f} MB int16): "
+        f"streaming _to_device {wave_ms['streaming']:.2f} ms, plain pageable copy "
+        f"{wave_ms['pageable']:.2f} ms (host clock, median of 7, the later of two turns) [{card}]")
+    return dict(frame_native_ms=native_ms, frame_numpy_ms=numpy_ms, load_framed_ms=load_ms,
+                h2d_pageable_ms=pageable_ms, h2d_pinned_ms=pinned_ms,
+                frame_and_copy_ms=stream_ms, frame_and_copy_old_ms=old_ms,
+                wave_h2d_streaming_ms=wave_ms["streaming"], wave_h2d_pageable_ms=wave_ms["pageable"])
+
+
+def _rel_gap(a, ref):
+    """(median, 99th percentile) of |a - ref| / max|ref|, in float64."""
+    import torch
+
+    d = (a.double() - ref.double()).abs().flatten() / ref.double().abs().max()
+    return d.median().item(), torch.quantile(d, 0.99).item()
+
+
+def _packed_rows(packed):
+    """Valid rows of a packed (B, K, 6) tensor: per clip (conf, cls, center, width)."""
+    out = []
+    for clip in packed.cpu().numpy():
+        out.append([(float(r[0]), int(r[2]), float(r[3]), float(r[4])) for r in clip if r[5] > 0.5])
+    return out
+
+
+def phase_bf16_serving(dev, card):
+    """Phase 9: the bf16 body through ``make_inference_fn`` at B=32, against
+    the float32 body on the card and against bf16 on the CPU."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.infer import make_inference_fn
+    from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+
+    cfg = _serving_config()
+    gen = torch.Generator().manual_seed(0)
+    sd = fold_repvgg(_randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen)
+                                   .state_dict(), gen))
+    fns = {name: make_inference_fn(AudioDetectionModel.from_config(cfg, 2, deploy=True,
+                                                                   dtype=dt), sd, device=dev)
+           for name, dt in (("f32", None), ("bf16", torch.bfloat16))}
+    fe = fns["bf16"].model.frontend
+    clips = np.stack([_unpadded_clip(cfg, 20 + i) for i in range(BATCH)])
+    x = torch.from_numpy(fe.frame_host(clips)).to(dev)
+    fns["bf16"](x)  # warm-up
+    torch.cuda.synchronize()
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked)
+    for c in counters:
+        c.launches = 0
+    packed = {"bf16": fns["bf16"](x)}
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    assert all(v == 1 for v in counts.values()), counts
+    packed["f32"] = fns["f32"](x)
+    ms = {k: time_ms(lambda k=k: fns[k](x), iters=10) for k in ("f32", "bf16", "f32", "bf16")}
+    _, rows, kern_ms = _profiled(lambda: fns["bf16"](x))
+    log(f"[bf16 serving B={BATCH}] forward+NMS {ms['bf16']:.3f} ms on CUDA events against "
+        f"float32's {ms['f32']:.3f} ms (each the later of two timings); "
+        f"{BATCH * cfg.sample_duration / ms['bf16'] * 1e3:.0f} audio-s/s device-side; "
+        f"{kern_ms:.3f} ms of kernels (profiler on); launches {counts} [{card}]")
+    for kms, count, key in rows[:10]:
+        log(f"[bf16 serving]   {kms:8.3f} ms  x{count:<4d} {key[:90]}")
+
+    # bf16 against float32 on the card, over the same clips
+    with torch.inference_mode():
+        p = {k: fns[k].model(x, combine_scales=True).float().cpu() for k in fns}
+    gap_card = _rel_gap(p["bf16"], p["f32"])
+    rows = {k: _packed_rows(packed[k]) for k in packed}
+    n_f32 = sum(map(len, rows["f32"]))
+    hit, conf_gap = 0, 0.0
+    for a, b in zip(rows["f32"], rows["bf16"]):
+        for conf, cls, c, w in a:
+            m = [q for q in b if q[1] == cls and abs(q[2] - c) <= BF16_ROW_TOL_S
+                 and abs(q[3] - w) <= BF16_WIDTH_REL * w]
+            if m:
+                hit += 1
+                conf_gap = max(conf_gap, min(abs(q[0] - conf) for q in m))
+    share = hit / max(n_f32, 1)
+    log(f"[bf16 serving] bf16 vs float32 on the card, {BATCH} clips: predictions |diff| / "
+        f"max|value| median {gap_card[0]:.3e}, p99 {gap_card[1]:.3e} (bound {BF16_PRED_P99}); "
+        f"{hit} of {n_f32} float32 detections ({share:.4f}, bound {BF16_ROW_SHARE}) have a bf16 "
+        f"one of their class, center within {BF16_ROW_TOL_S} s, width within "
+        f"{BF16_WIDTH_REL:.0%}; largest confidence gap {conf_gap:.3e} (bound {BF16_CONF_GAP})")
+    assert gap_card[1] <= BF16_PRED_P99, gap_card
+    assert n_f32 > 0 and share >= BF16_ROW_SHARE and conf_gap <= BF16_CONF_GAP, (share, conf_gap)
+
+    # bf16 on the card against bf16 on the CPU, B=2, on the same features
+    cpu_model = AudioDetectionModel.from_config(cfg, 2, deploy=True, dtype=torch.bfloat16)
+    cpu_model.load_state_dict(sd)
+    cpu_model.eval()
+    with torch.inference_mode():
+        feats = fns["bf16"].model.frontend(x[:2]).cpu()
+        t0 = time.perf_counter()
+        b_cpu = cpu_model(features=feats, combine_scales=True)
+        cpu_s = time.perf_counter() - t0
+        b_card = fns["bf16"].model(features=feats.to(dev), combine_scales=True).cpu()
+        f_card = fns["f32"].model(features=feats.to(dev), combine_scales=True).cpu()
+    gap_cpu, yard = _rel_gap(b_card, b_cpu), _rel_gap(b_card, f_card)
+    log(f"[bf16 serving] bf16 card vs bf16 CPU, B=2, same features: median {gap_cpu[0]:.3e}, "
+        f"p99 {gap_cpu[1]:.3e}; bound 2x the card's bf16-vs-float32 gap on them (median "
+        f"{yard[0]:.3e}, p99 {yard[1]:.3e}); CPU forward {cpu_s:.1f} s")
+    assert torch.isfinite(b_card).all() and b_card.shape == (2, cfg.total_proposals, 5)
+    assert gap_cpu[0] <= 2 * yard[0] and gap_cpu[1] <= 2 * yard[1], (gap_cpu, yard)
+    return dict(launches=counts, forward_ms=ms["bf16"], f32_forward_ms=ms["f32"],
+                kernels_ms=kern_ms, gap_card_p99=gap_card[1], row_share=share,
+                conf_gap=conf_gap, gap_cpu_p99=gap_cpu[1])
+
+
+def phase_custom(dev, card, train_tmp):
+    """Phase 10: ``backbone: custom`` at the shipped widths, block_layers
+    [2,2,2,2]: the B=32 serving forward (kernels 1 and 2 counted), card vs
+    CPU at B=2 (float32 body, same features), two train steps on the
+    shipped bf16 body."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import train_cli
+    from audioyolo_tpu_torch.config import Config
+    from audioyolo_tpu_torch.data.loader import BatchLoader
+    from audioyolo_tpu_torch.infer import make_inference_fn
+    from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+    from audioyolo_tpu_torch.train import TrainerPipeline
+
+    raw = _train_config(train_tmp).to_dict()
+    raw.update(backbone="custom", block_layers=[2, 2, 2, 2])
+    cfg = Config(raw)
+    gen = torch.Generator().manual_seed(2)
+    sd = _randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen).state_dict(), gen)
+    folded = fold_repvgg(sd)
+    fns = {name: make_inference_fn(AudioDetectionModel.from_config(cfg, 2, deploy=True,
+                                                                   dtype=dt), folded, device=dev)
+           for name, dt in (("f32", None), ("bf16", torch.bfloat16))}
+    fe = fns["f32"].model.frontend
+    clips = np.stack([_unpadded_clip(cfg, 40 + i) for i in range(BATCH)])
+    x = torch.from_numpy(fe.frame_host(clips)).to(dev)
+    for fn in fns.values():
+        fn(x)  # warm-up
+    torch.cuda.synchronize()
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked)
+    for c in counters:
+        c.launches = 0
+    outs = {k: fn(x) for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    assert all(v == 2 for v in counts.values()), counts
+    assert all(torch.isfinite(o).all() for o in outs.values())
+    ms = {k: time_ms(lambda k=k: fns[k](x), iters=5) for k in fns}
+    log(f"[custom B={BATCH}] serving forward+NMS float32 {ms['f32']:.3f} ms, bf16 "
+        f"{ms['bf16']:.3f} ms on CUDA events; launches over the two forwards {counts} [{card}]")
+
+    cpu_model = AudioDetectionModel.from_config(cfg, 2, deploy=True)
+    cpu_model.load_state_dict(folded)
+    cpu_model.eval()
+    with torch.inference_mode():
+        feats = fe(x[:2]).cpu()
+        t0 = time.perf_counter()
+        p_cpu = cpu_model(features=feats, combine_scales=True)
+        cpu_s = time.perf_counter() - t0
+        p_card = fns["f32"].model(features=feats.to(dev), combine_scales=True).cpu()
+    d = ((p_card - p_cpu).abs().max() / p_cpu.abs().max()).item()
+    log(f"[custom] card vs CPU, B=2, float32 body on the same features: max |diff| / max "
+        f"|value| {d:.3e} (bound {BODY_REL_BOUND}); CPU forward {cpu_s:.1f} s")
+    assert p_card.shape == (2, cfg.total_proposals, 5) and d < BODY_REL_BOUND, d
+
+    train_ds, _ = train_cli.resolve_datasets(cfg)
+    model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(3),
+                                            dtype=train_cli.compute_dtype(raw["tpu_config"]))
+    tc = raw["train_config"]
+    trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
+                              tc["optimizer_config"], tc["lr_scheduler_config"],
+                              model_path=os.path.join(train_tmp, "custom"), device=dev)
+    batch = next(iter(BatchLoader(train_ds, BATCH, shuffle=False, prefetch=0,
+                                  transfer_dtype="int16", framer=fe.fused)))
+    xb, tb = trainer.put_batch(batch)
+    mel_kernel.fused_mel_power.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(xb, tb)[0].item() for _ in range(2)]
+    step_s = (time.perf_counter() - t0) / 2
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[custom] two bf16 train steps at B={BATCH}: aggregate loss {losses}, "
+        f"{step_s * 1e3:.1f} ms a step (host clock, the first includes cuDNN's set-up), peak "
+        f"memory {peak / 2**30:.2f} GiB; kernel 1 launches {mel_kernel.fused_mel_power.launches} "
+        f"[{card}]")
+    assert all(np.isfinite(losses)) and mel_kernel.fused_mel_power.launches == 2
+    return dict(launches=counts, f32_forward_ms=ms["f32"], bf16_forward_ms=ms["bf16"],
+                card_cpu_rel=d, train_losses=losses, train_peak_gib=peak / 2**30)
 
 
 def main() -> int:
@@ -1278,6 +1765,9 @@ def main() -> int:
     try:
         training = phase_training(dev, card, tmp)
         inference = phase_inference(dev, card, tmp)
+        host = phase_native(dev, card, tmp)
+        bf16 = phase_bf16_serving(dev, card)
+        custom = phase_custom(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1285,7 +1775,9 @@ def main() -> int:
 
     def paths(name):
         return dict(infer_launches=inference["infer_launches"][name],
-                    eval_launches=inference["eval_launches"][name])
+                    eval_launches=inference["eval_launches"][name],
+                    bf16_launches=bf16["launches"].get(name, 0),
+                    custom_launches=custom["launches"].get(name, 0))
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -1306,6 +1798,9 @@ def main() -> int:
     log(json.dumps({"training": {k: v for k, v in training.items() if k != "train_launches"}}))
     log(json.dumps({"inference": {k: v for k, v in inference.items()
                                   if k not in ("infer_launches", "eval_launches")}}))
+    log(json.dumps({"native": host, "bf16_serving": {k: v for k, v in bf16.items()
+                                                     if k != "launches"},
+                    "custom": {k: v for k, v in custom.items() if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

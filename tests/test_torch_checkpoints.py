@@ -10,7 +10,9 @@ JAX trainer's ``.msgpack`` through the PyTorch port's importers.
   objectness 2e-4, class equal, times 1e-3 s).
 - The port's importer equals the JAX package's importer followed by
   ``state_dict_from_jax``, bit for bit, and its key function the JAX one on
-  every flax path, the CustomBackbone's included.
+  every flax path, the CustomBackbone's included. A reference
+  ``CustomBackBone`` checkpoint serves through ``build_inference
+  --ref_exact`` with the reference's predictions (1e-4).
 - A ``.msgpack`` laid out as the JAX trainer's ``save_model`` writes it, made
   with ``flax.serialization.msgpack_serialize``, serves through the port with
   the JAX model's detections (``tests/test_torch_slice.py`` tolerances), and a
@@ -162,10 +164,20 @@ def test_import_refuses_bad_checkpoints(tmp_path):
     with pytest.raises(ValueError, match="shape mismatch"):
         import_torch_state_dict(shaped, template)
 
-    _, custom = _reference_checkpoint(tmp_path, _raw(backbone="custom"), seed=6)
-    with pytest.raises(NotImplementedError, match="CustomBackbone"):
-        build_inference(Config(_raw(backbone="custom")), 2, custom, 0.1, CONF, ref_exact=True,
-                        device="cpu")
+    # the custom backbone's reference checkpoint serves (it was refused
+    # before the port had the backbone)
+    raw_c = _raw(backbone="custom")
+    tmodel_c, custom = _reference_checkpoint(tmp_path, raw_c, seed=6)
+    fn = build_inference(Config(raw_c), 2, custom, 0.1, CONF, ref_exact=True, device="cpu")
+    feats = np.random.default_rng(16).standard_normal((2, 2, 32, 160)).astype(np.float32)
+    with torch.no_grad():
+        ref = tmodel_c(torch.from_numpy(feats), combine_scales=True)
+        ours = fn.model(features=torch.from_numpy(feats).permute(0, 2, 3, 1),
+                        combine_scales=True)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+    framed = fn.model.frontend.frame_host(np.zeros((2, Config(raw_c).clip_samples), np.int16))
+    packed = fn(torch.from_numpy(framed))
+    assert packed.shape == (2, 32, 6) and torch.isfinite(packed).all()
 
 
 # ---- the JAX trainer's .msgpack -----------------------------------------------

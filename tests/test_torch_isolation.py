@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no JAX, no flax, nothing of the JAX
-package, and no quiet fall back to the CPU."""
+package, its own native library, and no quiet fall back to the CPU."""
 
 import ast
 import os
@@ -39,6 +39,27 @@ def test_no_forbidden_imports_in_sources():
                   in ("import_module", "__import__") and node.args
                   and isinstance(node.args[0], ast.Constant) and _forbidden(str(node.args[0].value))):
                 bad.append((path, node.args[0].value))
+    assert not bad, bad
+
+
+def test_native_library_is_the_ports_own():
+    """The port's native library is built from ``audioyolo_tpu_torch/csrc/``
+    into its own build directory; no port module names the root ``native/``
+    directory or the JAX package's ``libayt_audio.so``."""
+    import re
+
+    from audioyolo_tpu_torch.data import native
+    from audioyolo_tpu_torch.ops import build
+
+    pkg = os.path.join(ROOT, "audioyolo_tpu_torch")
+    assert build.CSRC == os.path.join(pkg, "csrc") and build.host_sources() == ["audio_io"]
+    assert build.command("audio_io", "x.so")[-1] == os.path.join(pkg, "csrc", "audio_io.cpp")
+    assert os.path.dirname(native.library()._name) == os.path.join(pkg, "build")
+    pattern = re.compile(r"libayt_audio|[\"'/]native/|join\([^)]*[\"']native[\"']")
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            bad += [(path, i + 1) for i, line in enumerate(f) if pattern.search(line)]
     assert not bad, bad
 
 

@@ -359,21 +359,33 @@ def test_tpu_only_settings_raise(knob, tmp_path, dataset_root):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_train_cli_warns_when_the_config_asks_for_another_dtype(dtype, tmp_path, dataset_root):
-    """The port trains the body in float32; a config asking for another
-    ``compute_dtype`` (the shipped one asks for bfloat16) gets one warning
-    naming ROADMAP A10. ``device_cache_dataset: on`` stops the run after it."""
-    raw = _cli_raw(tmp_path, dataset_root)
-    raw["tpu_config"].update(compute_dtype=dtype, device_cache_dataset="on")
+    """The config's ``compute_dtype`` picks the body's dtype (the shipped
+    config asks for bfloat16), as the JAX ``train.py`` reads it, and no
+    warning is raised for either: every conv and BatchNorm output of the
+    trained model is in that dtype, the parameters, Adam's moments and the
+    saved model stay float32, and the epoch's metrics are finite."""
+    raw = _cli_raw(tmp_path, dataset_root, epochs=1)
+    raw["tpu_config"].update(compute_dtype=dtype, transfer_dtype="int16")
+    want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        with pytest.raises(NotImplementedError, match="device_cache_dataset"):
-            train_cli.run(Config(raw), device="cpu")
-    ours = [w for w in caught if "compute_dtype" in str(w.message)]
-    if dtype == "float32":
-        assert not ours
-    else:
-        assert len(ours) == 1 and ours[0].category is UserWarning
-        assert "bfloat16" in str(ours[0].message) and "ROADMAP A10" in str(ours[0].message)
+        trainer = train_cli.run(Config(raw), device="cpu")
+    assert not [w for w in caught if "dtype" in str(w.message)]
+    model = trainer.model
+    assert model.dtype == (None if dtype == "float32" else torch.bfloat16)
+    seen = []
+    for m in model.modules():
+        if type(m).__name__ in ("Conv2d", "BatchNorm"):
+            m.register_forward_hook(lambda mod, inp, out: seen.append(out.dtype))
+    with torch.no_grad():
+        model.eval()(features=torch.zeros(1, 32, 160, 2))
+    assert seen and set(seen) == {want}
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert {s.dtype for st in trainer.optimizer.state.values() for s in st.values()
+            if torch.is_tensor(s) and s.is_floating_point()} == {torch.float32}
+    saved = torch.load(trainer.saved_model_path, weights_only=True)
+    assert {t.dtype for t in saved.values()} == {torch.float32}
+    assert np.isfinite(trainer.train_metrics[-1]["aggregate_loss"])
 
 
 def test_training_needs_the_card_unless_asked(tmp_path, dataset_root):
