@@ -37,6 +37,14 @@ import numpy as np
 from .dataset import AudioDataset
 
 
+def _repeat_last(v, reps: int):
+    """``v`` (an array, or the ``(q, scale)`` tuple of ``frame_host_int8``)
+    with its last row repeated ``reps`` times."""
+    if isinstance(v, tuple):
+        return tuple(_repeat_last(a, reps) for a in v)
+    return np.concatenate([v, np.repeat(v[-1:], reps, axis=0)], axis=0)
+
+
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 42,
                  last_batch: str = "partial", prefetch: int = 2,
@@ -99,8 +107,7 @@ class BatchLoader:
         if self.last_batch == "pad":
             if n < self.batch_size:
                 reps = self.batch_size - n
-                batch = {k: np.concatenate([v, np.repeat(v[-1:], reps, axis=0)], axis=0)
-                         for k, v in batch.items()}
+                batch = {k: _repeat_last(v, reps) for k, v in batch.items()}
                 batch["valid"][n:] = False
             batch["clip_valid"] = np.arange(self.batch_size) < n
         return batch

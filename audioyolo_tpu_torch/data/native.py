@@ -156,16 +156,23 @@ def frame_i16(clips: np.ndarray, framer, n_threads: int = 2,
     return out
 
 
-def quant_i8(clips: np.ndarray, n_threads: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+def quant_i8(clips: np.ndarray, n_threads: int = 2,
+             out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Per-clip symmetric int8 quantization of an int16 batch (B, ...), each
     clip flattened: ``(q int8 of the same shape, step float32 (B,))``, the
     step in int16 units (``max(absmax, 1) / 127``), codes rounded half to
-    even and clipped to [-127, 127]."""
+    even and clipped to [-127, 127]; ``q`` written into ``out`` when given."""
     if clips.dtype != np.int16:
         raise ValueError(f"quant_i8 takes int16 clips, got {clips.dtype}")
     clips = np.ascontiguousarray(clips)
     n = clips.shape[0]
-    q = np.empty(clips.shape, np.int8)
+    if out is None:
+        q = np.empty(clips.shape, np.int8)
+    elif out.shape != clips.shape or out.dtype != np.int8 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous int8 array of shape {clips.shape}, "
+                         f"got {out.dtype} {out.shape}")
+    else:
+        q = out
     step = np.empty(n, np.float32)
     _check(library().ayt_quant_i8(_ptr(clips, ctypes.c_int16), n, int(clips.size // max(n, 1)),
                                   _ptr(q, ctypes.c_int8), _ptr(step, ctypes.c_float),

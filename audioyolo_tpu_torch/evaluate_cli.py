@@ -17,9 +17,11 @@ measures the task the model was trained on.
 The batches come from the port's ``BatchLoader`` (the JAX package's
 device-resident cache gives the same batches and is ROADMAP A8); with
 ``--framed_input`` and ``transfer_dtype: int16`` it decodes each batch
-straight into int16 frames. ``--int8`` raises ``NotImplementedError`` (ROADMAP
-A10); ``--framed_input`` raises when the config's frontend has no framer.
-``--device`` defaults to the CUDA card.
+straight into int16 frames, and under ``frontend_precision: int8`` it frames
+each batch with ``frame_host_int8`` into the int8 DFT's ``(q, scale)``.
+``--int8`` runs the int8 body, calibrated on the first four files of the
+split (``inference_cli.load_calib_batch``). ``--framed_input`` raises when
+the config's frontend has no framer. ``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from .config import load_config
 from .data.dataset import AudioDataset
@@ -37,7 +38,7 @@ from .data.loader import BatchLoader
 from .device import resolve_device
 from .infer.decode import postprocess_detections, unpack_detections
 from .infer.eval_map import event_average_precision, event_map
-from .inference_cli import build_inference, framed_frontend, refuse_unported
+from .inference_cli import build_inference, framed_frontend, load_calib_batch, model_input_on
 from .serve import get_label_map
 from .train_cli import load_annotations
 
@@ -57,17 +58,21 @@ def main(argv=None) -> dict:
     parser.add_argument("--conf_threshold", type=float, default=0.05, metavar="",
                         help="confidence floor for scored detections")
     parser.add_argument("--int8", action="store_true",
-                        help="not ported: raises NotImplementedError (ROADMAP A10)")
+                        help="int8 detector body, scales calibrated on the first split files")
     parser.add_argument("--framed_input", action="store_true",
                         help="frame clips on the host for the fused frontend; raises when "
                              "the config's frontend has no framer")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    refuse_unported(int8=args.int8)
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
-    framer = framed_frontend(cfg).fused if args.framed_input else None
+    fe = framed_frontend(cfg) if args.framed_input else None
+    # int16 frames come straight from the loader's framed decode; the int8
+    # posture's (q, scale) frames from frame_host_int8 on each batch
+    int8_frames = fe is not None and fe.fused_int8
+    framer = fe.fused if fe is not None and not int8_frames else None
+    frame_fn = None if fe is None else (fe.frame_host_int8 if int8_frames else fe.frame_host)
     tc = cfg.raw["train_config"]
     annotator = args.annotator or tc["annotator"]
     class_map_path = args.class_map_path or os.path.join(tc["class_map_path"], "class_map.json")
@@ -82,8 +87,10 @@ def main(argv=None) -> dict:
                       extension=cfg.raw["audio_extension"], max_targets=cfg.max_targets)
     ds.class2idx = {v: k for k, v in idx2class.items()}  # the training vocabulary
 
+    calib = (load_calib_batch([ds.audio_span(i)[0] for i in range(min(4, len(ds)))], cfg,
+                              frame_fn=frame_fn) if args.int8 else None)
     infer_fn = build_inference(cfg, num_classes, model_path, args.iou_threshold,
-                               args.conf_threshold, device=device)
+                               args.conf_threshold, device=device, int8_calib=calib)
     transfer_dtype = (cfg.raw.get("tpu_config") or {}).get("transfer_dtype", "float32")
     loader = BatchLoader(ds, batch_size, shuffle=False, last_batch="partial",
                          transfer_dtype=transfer_dtype, framer=framer)
@@ -91,7 +98,10 @@ def main(argv=None) -> dict:
     detections, ground_truth = [], []
     clip = 0
     for batch in loader:
-        out = infer_fn(torch.from_numpy(batch["audio"]).to(device))
+        audio = batch["audio"]
+        if int8_frames:
+            audio = frame_fn(audio[:, 0, :] if audio.ndim == 3 else audio)
+        out = infer_fn(model_input_on(audio, device))
         rows = postprocess_detections(unpack_detections(out.cpu().numpy()), cfg.sample_duration,
                                       return_start_end=True)
         b = batch["audio"].shape[0]

@@ -66,12 +66,21 @@ def unpack_detections(arr: np.ndarray) -> Dict[str, np.ndarray]:
 def make_inference_fn(model, state_dict: Dict[str, torch.Tensor],
                       iou_threshold: float = 0.1, conf_threshold: float = 0.2,
                       keep_k: int = 128, packed: bool = True,
-                      device: DeviceLike = None) -> Callable[[torch.Tensor], torch.Tensor]:
+                      device: DeviceLike = None,
+                      int8_input: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """Load ``state_dict`` into ``model``, move it to ``device`` (default: the
     card) and return ``fn(x)``. ``x`` is a (B, 1, S) waveform or (B, n_ph, G,
-    F) int16/float frames already on that device; ``fn(x)`` returns the packed
-    (B, keep_k, 6) tensor (or the detection dict with ``packed=False``).
-    ``model`` is normally the ``deploy=True`` model with folded weights.
+    F) int16/float frames already on that device (or, in the ``int8``
+    frontend posture, the ``(q, scale)`` frames of ``frame_host_int8``);
+    ``fn(x)`` returns the packed (B, keep_k, 6) tensor (or the detection dict
+    with ``packed=False``). ``model`` is normally the ``deploy=True`` model
+    with folded weights (and, for the int8 body, its scales set by
+    ``models/quant.py::set_quant``).
+
+    ``int8_input=True``: ``x`` is ``(q, scale)``, a (B, 1, S) int8 waveform
+    and its (B,) float32 per-clip scales from
+    ``infer/streaming.py::quantize_clips_int8``, dequantized on the device
+    (``q * scale``) before the frontend.
     """
     dev = resolve_device(device)
     model.load_state_dict(state_dict)
@@ -79,9 +88,13 @@ def make_inference_fn(model, state_dict: Dict[str, torch.Tensor],
     duration = float(model.cfg.sample_duration)
 
     @torch.inference_mode()
-    def infer(x: torch.Tensor):
-        if x.device != dev:
-            raise ValueError(f"input is on {x.device}, the model on {dev}")
+    def infer(x):
+        parts = x if isinstance(x, (tuple, list)) else (x,)
+        if any(t.device != dev for t in parts):
+            raise ValueError(f"input is on {parts[0].device}, the model on {dev}")
+        if int8_input:
+            q, scale = x
+            x = q.float() * scale[:, None, None]
         preds = model(x, combine_scales=True)
         dets = detection_postprocess_graph(preds, iou_threshold, conf_threshold,
                                            duration, keep_k)

@@ -9,9 +9,12 @@ padded clips are dropped. :func:`evaluate_files_batched` fills each batch
 with windows of as many files as it takes.
 
 Transfer: mono PCM16 files ship int16 to the device (dequantized there),
-other formats float32. A file at the model rate ships phase-grouped frames
-when a ``frame_fn`` is given (int16 windows through the native framer); a
-file at another rate is resampled on the device and takes the waveform path.
+other formats float32; ``transfer="int8"`` ships per-clip int8 waveforms
+and their scales (:func:`quantize_clips_int8`, half the int16 bytes), or,
+with the ``int8`` posture's framer, the ``(q, scale)`` frames. A file at
+the model rate ships phase-grouped frames when a ``frame_fn`` is given
+(int16 windows through the native framer); a file at another rate is
+resampled on the device and takes the waveform path.
 Chunks are read, framed and copied to the device on a producer thread
 (:func:`_prefetch_iter`) and dispatched two deep: chunk N+1 is queued on the
 device before chunk N's detections are copied back.
@@ -21,8 +24,7 @@ frames straight from the framer) and copied with ``non_blocking=True`` on
 the default stream, which orders the copy before the forward that reads it.
 No host buffer is reused while its copy is in flight: PyTorch's caching host
 allocator hands a freed pinned block out again only after the copies
-recorded on it have completed. The JAX package's int8 transfer is not ported
-(ROADMAP A10).
+recorded on it have completed.
 """
 
 from __future__ import annotations
@@ -39,17 +41,42 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data import native
 from ..data.wavio import read_wav, read_wav_info, read_wav_pcm16_mono
 from ..ops.resample import Resampler
 from .decode import postprocess_detections, unpack_detections
 
 
 def _check_transfer(transfer: str) -> None:
-    if transfer == "int8":
-        raise NotImplementedError(
-            "transfer='int8' (per-clip int8 quantization) is not ported yet (ROADMAP A10)")
-    if transfer != "int16":
+    if transfer not in ("int16", "int8"):
         raise ValueError(f"transfer must be 'int16' or 'int8', got {transfer!r}")
+
+
+def quantize_clips_int8(clips: np.ndarray, out: Optional[np.ndarray] = None):
+    """Per-clip symmetric int8 quantization of a (B, 1, S) int16 or float32
+    clip batch: ``(q int8, scale float32 (B,))`` with ``q * scale`` the float
+    waveform the int16 or float path feeds the model (for int16 the readers'
+    1/32768 folds into ``scale``). int16 runs the native quantizer
+    (``data/native.py::quant_i8``, which raises if the library cannot be
+    built), float32 numpy; both bit-equal to the JAX package's. ``q`` is
+    written into ``out`` when given."""
+    if clips.dtype == np.int16:
+        q, step = native.quant_i8(clips, out=out)
+        return q, (step / np.float32(32768.0)).astype(np.float32)
+    a = np.abs(clips).max(axis=(1, 2)).astype(np.float32)
+    s = np.maximum(a, np.float32(1e-12)) / 127.0
+    q = np.clip(np.round(clips.astype(np.float32) / s[:, None, None]), -127, 127)
+    if out is None:
+        return q.astype(np.int8), s.astype(np.float32)
+    out[...] = q
+    return out, s.astype(np.float32)
+
+
+def _need_int8_framer(framed) -> None:
+    if not isinstance(framed, tuple):
+        raise ValueError("transfer='int8' with frame_fn requires a quantizing framer "
+                         "(SpectralFrontend.frame_host_int8: set tpu_config."
+                         "frontend_precision: int8)")
 
 
 def _prefetch_iter(gen: Iterator, depth: int = 2) -> Iterator:
@@ -128,7 +155,8 @@ def _fetch(out) -> Dict[str, np.ndarray]:
     return unpack_detections(out.cpu().numpy())
 
 
-_TORCH_DTYPES = {np.dtype(np.int16): torch.int16, np.dtype(np.float32): torch.float32}
+_TORCH_DTYPES = {np.dtype(np.int16): torch.int16, np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int8): torch.int8}
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -140,20 +168,44 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _frames_to_device(frame_fn: Callable, clips: np.ndarray,
-                      device: torch.device) -> torch.Tensor:
-    """``frame_fn(clips)`` on ``device``: on the card the frames are written
-    straight into a fresh pinned host tensor, then sent ``non_blocking``."""
+def _pinned_fill(fill: Callable, device: torch.device):
+    """``fill(alloc)`` on ``device``: on the card its big array is written
+    straight into a fresh pinned host tensor (``alloc(shape, dtype)``) and
+    sent ``non_blocking``, with any small arrays it returns beside it. A
+    tuple result (``(q, scale)``) stays a tuple."""
     if device.type != "cuda":
-        return torch.from_numpy(frame_fn(clips))
+        out = fill(None)
+        return (tuple(torch.from_numpy(a) for a in out) if isinstance(out, tuple)
+                else torch.from_numpy(out))
     pinned: List[torch.Tensor] = []
 
     def alloc(shape, dtype):
         pinned.append(torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True))
         return pinned[-1].numpy()
 
-    frame_fn(clips, alloc=alloc)
-    return pinned[0].to(device, non_blocking=True)
+    out = fill(alloc)
+    big = pinned[0].to(device, non_blocking=True)
+    if isinstance(out, tuple):
+        return (big,) + tuple(_to_device(a, device) for a in out[1:])
+    return big
+
+
+def _frames_to_device(frame_fn: Callable, clips: np.ndarray, device: torch.device,
+                      transfer: str = "int16"):
+    """``frame_fn(clips)`` on ``device`` (``_pinned_fill``); with ``transfer=
+    "int8"`` the framer must be the quantizing one."""
+    out = _pinned_fill(lambda alloc: frame_fn(clips) if alloc is None
+                       else frame_fn(clips, alloc=alloc), device)
+    if transfer == "int8":
+        _need_int8_framer(out)
+    return out
+
+
+def _int8_to_device(clips: np.ndarray, device: torch.device):
+    """(B, 1, S) clips -> ``(q, scale)`` on ``device`` (``quantize_clips_int8``
+    into pinned memory on the card)."""
+    return _pinned_fill(lambda alloc: quantize_clips_int8(
+        clips, out=None if alloc is None else alloc(clips.shape, np.int8)), device)
 
 
 def evaluate_audio(
@@ -179,7 +231,12 @@ def evaluate_audio(
     ``chunk_range``: ``(c0, c1)`` evaluates only chunks ``c0 <= c < c1``
     (a chunk is ``batch_size`` windows) with clip offsets kept global, so
     the rows of disjoint ranges concatenate to the rows of the whole file.
-    ``transfer``: ``"int16"``; ``"int8"`` raises ``NotImplementedError``.
+    ``transfer``: ``"int16"`` (exact for PCM16 sources) or ``"int8"``
+    (:func:`quantize_clips_int8`; ``infer_fn`` built with
+    ``make_inference_fn(int8_input=True)``), which needs a file at
+    ``input_sample_rate``. With a ``frame_fn``, ``"int8"`` needs the
+    quantizing framer (``frame_host_int8``), whose ``(q, scale)`` frames go
+    to the model's own framed-int8 entry.
     """
     _check_transfer(transfer)
     device = infer_fn.device
@@ -200,6 +257,9 @@ def evaluate_audio(
         if key not in cache:
             cache[key] = Resampler(og_rate, input_sample_rate).to(device)
         resampler = cache[key]
+    if transfer == "int8" and resampler is not None:
+        raise ValueError("transfer='int8' requires native-rate files (no resampling on the "
+                         f"device; file rate {og_rate} vs model rate {input_sample_rate})")
 
     def read_chunk_mono(start_frame: int):
         """(samples_1d, dtype): int16 for mono PCM16 files, float32 otherwise."""
@@ -231,7 +291,10 @@ def evaluate_audio(
                     [clips, np.zeros((batch_size - nclips, 1, sample_size), dtype)], axis=0)
             start_frame += chunk_frames
             if frame_fn is not None and resampler is None:
-                yield nclips, _frames_to_device(frame_fn, clips[:, 0, :], device)
+                yield nclips, _frames_to_device(frame_fn, clips[:, 0, :], device, transfer)
+                continue
+            if transfer == "int8":
+                yield nclips, _int8_to_device(clips, device)
                 continue
             x = _to_device(clips, device)
             if resampler is not None:
@@ -311,7 +374,8 @@ def evaluate_files_batched(
     All ``paths`` must be at ``input_sample_rate`` (``runner.evaluate_dir``
     sends other rates to :func:`evaluate_audio`). A file's CSV is written as
     soon as its last window drains; rows, sorting, RLE merge and CSV naming
-    are those of :func:`evaluate_audio`. Returns the number of files.
+    are those of :func:`evaluate_audio`, and so is ``transfer``. Returns the
+    number of files.
     """
     _check_transfer(transfer)
     device = infer_fn.device
@@ -339,7 +403,7 @@ def evaluate_files_batched(
         for fi, (path, (_, total, _)) in enumerate(zip(paths, infos)):
             yield from ((fi, clip, w) for clip, w in _iter_windows(path, sample_size, total))
 
-    def to_device(wins: List[np.ndarray]) -> torch.Tensor:
+    def to_device(wins: List[np.ndarray]):
         if all(w.dtype == np.int16 for w in wins):
             arr = np.stack(wins)
         else:  # mixed sources: promote, scaling PCM16 exactly like the readers
@@ -353,7 +417,9 @@ def evaluate_files_batched(
             arr = np.concatenate(
                 [arr, np.zeros((batch_size - n,) + arr.shape[1:], arr.dtype)], axis=0)
         if frame_fn is not None:
-            return _frames_to_device(frame_fn, arr, device)
+            return _frames_to_device(frame_fn, arr, device, transfer)
+        if transfer == "int8":
+            return _int8_to_device(arr[:, None, :], device)
         return _to_device(arr[:, None, :], device)
 
     def batches():

@@ -19,9 +19,15 @@ dict (``train_cli`` writes it); ``.pth``/``.pth.tar`` a reference checkpoint
 (``models/import_torch.py``); ``.msgpack`` the JAX trainer's file
 (``models/flax_msgpack.py`` + ``models/from_jax.py``).
 
-Not ported, each raising ``NotImplementedError``: ``--int8`` and ``--transfer
-int8`` (ROADMAP A10), ``--workers`` above 1 (the process pool, ROADMAP A11).
-``--device`` defaults to the CUDA card.
+``--int8`` runs the int8 body (``models/quant.py``), calibrated on the first
+windows of the input (``load_calib_batch``); the stem and the prediction
+convs stay float. ``--transfer int8`` ships per-clip int8 waveforms (half the
+int16 bytes; native-rate files only), or with ``--framed_input`` under
+``frontend_precision: int8`` the ``(q, scale)`` frames of
+``frame_host_int8``.
+
+Not ported: ``--workers`` above 1 (the process pool, ROADMAP A11) raises
+``NotImplementedError``. ``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ import argparse
 import os
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from .config import load_config
+from .data.wavio import read_wav, read_wav_info
 from .device import DeviceLike, resolve_device
 from .infer.decode import make_inference_fn
 from .infer.runner import evaluate_dir
@@ -41,6 +49,7 @@ from .models.detector import AudioDetectionModel
 from .models.flax_msgpack import load as load_msgpack
 from .models.from_jax import state_dict_from_jax
 from .models.import_torch import import_torch_state_dict, load_torch_checkpoint
+from .models.quant import calibrate_quant, set_quant
 from .models.reparam import fold_repvgg
 from .ops.frontend import SpectralFrontend
 from .serve import get_label_map
@@ -61,19 +70,35 @@ def load_model_state(model: AudioDetectionModel, model_path: str) -> Dict[str, t
     raise ValueError(f"unknown checkpoint format '{model_path}' (.pt, .pth, .pth.tar or .msgpack)")
 
 
+def model_input_on(x, dev: torch.device):
+    """A numpy model input (an array or the ``(q, scale)`` tuple) on ``dev``."""
+    if isinstance(x, tuple):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in x)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
 def build_inference(cfg, num_classes: int, model_path: str, iou_threshold: float,
                     conf_threshold: float, fold: bool = True, ref_exact: bool = False,
                     device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None) -> Callable[[torch.Tensor], torch.Tensor]:
+                    dtype: Optional[torch.dtype] = None, int8_calib=None,
+                    int8_input: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """The packed-output inference function of a checkpoint on ``device``
     (default: the card). ``ref_exact=True`` runs a reference checkpoint in
     the form it was trained in: per-branch RepVGG activation and no fold
     (folding is not exact under per-branch activation). ``dtype`` is the
-    body's compute dtype (``torch.bfloat16`` for ``--bf16``)."""
+    body's compute dtype (``torch.bfloat16`` for ``--bf16``).
+
+    ``int8_calib``: a numpy model-input batch (waveform, frames or the
+    ``(q, scale)`` tuple); when given, the body runs int8 at scales
+    calibrated on it (``models/quant.py``), which needs the folded model.
+    ``int8_input``: the function takes ``(q, scale)`` int8 waveforms
+    (``--transfer int8``)."""
     dev = resolve_device(device)
     cfg = load_config(cfg)
     if ref_exact:
         fold = False
+    if int8_calib is not None and not fold:
+        raise ValueError("--int8 requires the folded model (drop --no_fold/--ref_exact)")
     train_model = AudioDetectionModel.from_config(cfg, num_classes, branch_act=ref_exact,
                                                   dtype=dtype)
     state = load_model_state(train_model, model_path)
@@ -82,9 +107,47 @@ def build_inference(cfg, num_classes: int, model_path: str, iou_threshold: float
         state = fold_repvgg(state)
     else:
         model = train_model
+    if int8_calib is not None:
+        model.load_state_dict(state)
+        model.to(dev).eval()
+        set_quant(model, calibrate_quant(model, [model_input_on(int8_calib, dev)]))
     keep_k = int((cfg.raw.get("tpu_config") or {}).get("nms_keep", 128))
     return make_inference_fn(model, state, iou_threshold, conf_threshold, keep_k=keep_k,
-                             packed=True, device=dev)
+                             packed=True, device=dev, int8_input=int8_input)
+
+
+def load_calib_batch(paths, cfg, frame_fn=None, n_clips: int = 4):
+    """The first ``n_clips`` windows of ``paths`` (tails zero-padded) as a
+    float32 model-input batch for int8 calibration, framed by ``frame_fn``
+    when given. Files are downmixed to mono and brought to
+    ``cfg.sample_rate`` by linear interpolation (calibration needs only
+    absmax-accurate amplitudes), as the JAX package's ``inference.py``
+    does."""
+    size = int(cfg.clip_samples)
+    rate = int(cfg.sample_rate)
+    clips = []
+    for p in paths:
+        og_rate = read_wav_info(p)[0]
+        need_src = int(np.ceil(size * n_clips * og_rate / rate))
+        audio, _ = read_wav(p, num_frames=need_src)
+        if audio.shape[0] != 1:
+            audio = audio.mean(axis=0, keepdims=True)
+        mono = audio[0].astype(np.float32)
+        if og_rate != rate:
+            n_out = int(mono.size * rate / og_rate)
+            mono = np.interp(np.arange(n_out) * (og_rate / rate), np.arange(mono.size),
+                             mono).astype(np.float32)
+        n = min(n_clips - len(clips), max(1, int(np.ceil(mono.size / size))))
+        buf = np.zeros((n, size), np.float32)
+        flat = mono[: n * size]
+        buf.reshape(-1)[: flat.size] = flat
+        clips.extend(buf)
+        if len(clips) >= n_clips:
+            break
+    if not clips:
+        raise ValueError("no calibration audio found")
+    batch = np.stack(clips)[:, None, :]
+    return frame_fn(batch[:, 0, :]) if frame_fn is not None else batch
 
 
 def framed_frontend(cfg) -> SpectralFrontend:
@@ -99,15 +162,30 @@ def framed_frontend(cfg) -> SpectralFrontend:
     return fe
 
 
-def refuse_unported(int8: bool = False, transfer: str = "int16", workers: int = 1) -> None:
+def build_frame_fn(cfg) -> Callable:
+    """``--framed_input``'s host framer: ``frame_host``, or under
+    ``frontend_precision: int8`` the quantizing ``frame_host_int8``."""
+    fe = framed_frontend(cfg)
+    return fe.frame_host_int8 if fe.fused_int8 else fe.frame_host
+
+
+def refuse_unported(workers: int = 1) -> None:
     """``NotImplementedError`` for the flags whose posture is not ported."""
-    if int8:
-        raise NotImplementedError("--int8 (the int8 PTQ body) is not ported yet (ROADMAP A10)")
-    if transfer == "int8":
-        raise NotImplementedError("--transfer int8 is not ported yet (ROADMAP A10)")
     if workers > 1:
         raise NotImplementedError("--workers > 1 (the streaming process pool) is not ported "
                                   "yet (ROADMAP A11)")
+
+
+def first_input_path(audio_filepath: str, audio_dir: str, extension: str) -> str:
+    """The file ``--int8`` calibrates on: the single input, or the first
+    file of the directory."""
+    if audio_filepath:
+        return audio_filepath
+    ext = extension.replace(".", "")
+    names = sorted(f for f in os.listdir(audio_dir) if f.endswith(f".{ext}"))
+    if not names:
+        raise OSError(f"no .{ext} files in {audio_dir}")
+    return os.path.join(audio_dir, names[0])
 
 
 def main(argv=None) -> None:
@@ -135,15 +213,18 @@ def main(argv=None) -> None:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute for the detector body")
     parser.add_argument("--int8", action="store_true",
-                        help="not ported: raises NotImplementedError (ROADMAP A10)")
+                        help="int8 detector body, scales calibrated on the first windows of "
+                             "the input; the stem and prediction convs stay float")
     parser.add_argument("--framed_input", action="store_true",
                         help="frame clips on the host for the fused frontend; raises when "
                              "the config's frontend has no framer")
     parser.add_argument("--transfer", type=str, default="int16", choices=("int16", "int8"),
-                        help="host->device waveform format; int8 is not ported (ROADMAP A10)")
+                        help="host->device format: int16 (exact for PCM16) or int8 (per-clip "
+                             "scales, half the bytes; native-rate files only; with "
+                             "--framed_input needs frontend_precision: int8)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    refuse_unported(args.int8, args.transfer, args.workers)
+    refuse_unported(args.workers)
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
@@ -155,11 +236,20 @@ def main(argv=None) -> None:
         raise FileNotFoundError(f"{class_map_path} does not exist")
     idx2class = get_label_map(class_map_path)
 
-    frame_fn = framed_frontend(cfg).frame_host if args.framed_input else None
+    frame_fn = build_frame_fn(cfg) if args.framed_input else None
+    if args.transfer == "int8" and frame_fn is not None and not SpectralFrontend(cfg).fused_int8:
+        raise ValueError("--transfer int8 with --framed_input requires "
+                         "tpu_config.frontend_precision: int8 (the quantizing framer)")
+    calib = (load_calib_batch([first_input_path(args.audio_filepath, args.audio_dir,
+                                                args.extension)], cfg, frame_fn=frame_fn)
+             if args.int8 else None)
+    # framed int8 tuples go to the model's own framed entry; the (q, scale)
+    # waveform entry is for the unframed int8 transfer only
     infer_fn = build_inference(cfg, len(idx2class), model_path, args.iou_threshold,
                                args.conf_threshold, fold=not args.no_fold,
                                ref_exact=args.ref_exact, device=device,
-                               dtype=torch.bfloat16 if args.bf16 else None)
+                               dtype=torch.bfloat16 if args.bf16 else None, int8_calib=calib,
+                               int8_input=args.transfer == "int8" and frame_fn is None)
     kwargs = dict(input_sample_rate=cfg.sample_rate, sample_duration=cfg.sample_duration,
                   batch_size=batch_size, idx2class_map=idx2class, frame_fn=frame_fn,
                   transfer=args.transfer)

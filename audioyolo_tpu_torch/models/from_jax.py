@@ -6,6 +6,8 @@ leaf is renamed (HWIO ``kernel`` -> OIHW ``weight``, BatchNorm ``scale`` ->
 ``weight``, ``mean``/``var`` -> ``running_mean``/``running_var``). Works for
 the train form and for the folded deploy form. Takes nested dicts of numpy
 arrays (anything ``np.asarray`` accepts), so it needs no JAX import.
+:func:`quant_scales_from_jax` carries a JAX ``quant`` collection (the int8
+calibration, ``audioyolo_tpu/models/quant.py``) across the same way.
 """
 
 from __future__ import annotations
@@ -44,4 +46,16 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             else:
                 raise KeyError(f"unmapped {collection} leaf {'/'.join(path)}")
             out[key] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    return out
+
+
+def quant_scales_from_jax(quant: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``quant`` collection (``{..path..: {"s_x": scale}}``) -> the
+    port's ``{conv name: s_x}`` for ``models/quant.py::set_quant``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(quant):
+        *mods, name = path
+        if name != "s_x":
+            raise KeyError(f"unmapped quant leaf {'/'.join(path)}")
+        out[".".join(mods)] = torch.tensor(np.asarray(leaf, dtype=np.float32))
     return out

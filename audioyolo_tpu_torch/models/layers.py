@@ -21,6 +21,10 @@ float32 and casts its output to ``dtype`` (one mixed-precision
 concatenations and residual adds run in whatever dtype reaches them. The
 casts are explicit, where the JAX package makes them: ``torch.autocast``
 would keep BatchNorm and the adds in other dtypes.
+
+int8 (``models/quant.py``): a ``Conv2d`` whose ``s_x`` buffer is set (the
+calibrated scale of its input) runs :func:`_int8_conv`; with ``s_x`` unset
+(the default) it is the float conv, untouched.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.int8 import int8_mm
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -93,8 +99,64 @@ class _ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
 
+def _int8_im2col(xq: torch.Tensor, kh: int, kw: int, stride: Tuple[int, int],
+                 pad: Tuple[int, int]):
+    """(B, C, H, W) int8 -> ((B*Ho*Wo, kh*kw*C) int8 patches, Ho, Wo): rows
+    in NHWC order, columns in (kh, kw, C) order, zero padding."""
+    b = xq.shape[0]
+    (sh, sw), (ph, pw) = stride, pad
+    xp = F.pad(xq, (pw, pw, ph, ph)).permute(0, 2, 3, 1)  # NHWC view
+    ho = (xp.shape[1] - kh) // sh + 1
+    wo = (xp.shape[2] - kw) // sw + 1
+    taps = [xp[:, i: i + sh * (ho - 1) + 1: sh, j: j + sw * (wo - 1) + 1: sw]
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, -1), ho, wo
+
+
+def int8_conv_acc(xq: torch.Tensor, wq: torch.Tensor, stride: Tuple[int, int],
+                  pad: Tuple[int, int]) -> torch.Tensor:
+    """The int32 accumulator of an int8 conv: ``xq`` (B, C, H, W) and ``wq``
+    (O, C, kh, kw) int8 -> (B, O, Ho, Wo) int32, exact: an int8 im2col times
+    the kernel through ``ops/int8.py::int8_mm``."""
+    o, _, kh, kw = wq.shape
+    cols, ho, wo = _int8_im2col(xq, kh, kw, stride, pad)
+    acc = int8_mm(cols, wq.permute(2, 3, 1, 0).reshape(-1, o))
+    return acc.reshape(xq.shape[0], ho, wo, o).permute(0, 3, 1, 2)
+
+
+def _int8_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               s_x: torch.Tensor, stride: Tuple[int, int],
+               pad: Tuple[int, int]) -> torch.Tensor:
+    """Symmetric int8 conv, the JAX package's ``layers._int8_conv``:
+    ``y = conv(q(x), q(w)) * (s_x * s_w) + b`` in ``x``'s dtype.
+
+    ``s_x`` is the calibrated per-tensor scale of the input, ``s_w`` the
+    per-output-channel scale max|w| / 127 taken from the float32 kernel at
+    call time; zero point 0, so zero padding stays exact. For an H=1 (W=1)
+    input a 2p+1 kernel with padding p touches data only through its middle
+    row (column): it is sliced out first, as the JAX package does, and
+    ``s_w`` is taken from the slice."""
+    out_dt = x.dtype
+    kh, kw = w.shape[2], w.shape[3]
+    ph, pw = pad
+    if x.shape[2] == 1 and kh == 2 * ph + 1 and kh > 1:
+        w, ph = w[:, :, ph: ph + 1], 0
+    if x.shape[3] == 1 and kw == 2 * pw + 1 and kw > 1:
+        w, pw = w[:, :, :, pw: pw + 1], 0
+    xq = torch.clamp(torch.round(x.float() / s_x), -127.0, 127.0).to(torch.int8)
+    s_w = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
+    wq = torch.clamp(torch.round(w / s_w.view(-1, 1, 1, 1)), -127.0, 127.0).to(torch.int8)
+    acc = int8_conv_acc(xq, wq, stride, (ph, pw))
+    y = acc.float() * (s_x * s_w).view(1, -1, 1, 1)
+    if b is not None:
+        y = y + b.view(1, -1, 1, 1)
+    return y.to(out_dt)
+
+
 class Conv2d(nn.Module):
-    """Conv with explicit symmetric padding; parameters under ``.conv``."""
+    """Conv with explicit symmetric padding; parameters under ``.conv``.
+    ``s_x`` (a 0-d float32 buffer, not in the state dict) switches it to
+    :func:`_int8_conv`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair,
                  stride: IntPair = 1, padding: IntPair = 0, bias: bool = True,
@@ -104,9 +166,12 @@ class Conv2d(nn.Module):
         self.padding = _pair(padding)
         self.dtype = dtype
         self.conv = _ConvParams(in_ch, out_ch, _pair(kernel_size), bias)
+        self.register_buffer("s_x", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.conv.weight, self.conv.bias
+        if self.s_x is not None:
+            return _int8_conv(x, w, b, self.s_x, self.stride, self.padding)
         if self.dtype is None:
             return F.conv2d(x, w, b, self.stride, self.padding)
         y = F.conv2d(x.to(self.dtype), w.to(self.dtype), None, self.stride, self.padding)

@@ -5,24 +5,35 @@ The constants (windows, DFT, mel filterbank, DCT) are built on the host in
 float64 numpy exactly as the JAX package builds them. On the device the
 frontend is GEMMs plus elementwise work.
 
-Postures, read from ``tpu_config`` as the JAX package reads them:
+Postures, read from ``tpu_config`` as the JAX package reads them. Each sets
+how the DFT and mel products round (``posture_matmul``); the resampler and
+the small DCT product stay float32 in every posture (the JAX package runs its
+resampler at ``HIGHEST``, and the port keeps the 32 x 32 DCT float32 as kernel
+1's posture always has):
 
-- ``frontend_precision: highest`` (the default): every product is a float32
-  ``torch.matmul`` with TF32 off.
-- ``frontend_precision: default`` with ``pallas_frontend: on``: the DFT ->
-  power -> mel stage runs as kernel 1 (``mel_kernel.fused_mel_power``, bf16
-  operands, fp32 sums) on CUDA tensors and as its plain version on CPU
-  tensors, for phase-grouped frames and for the waveform path's frames
-  alike (there with one phase and the window-folded DFT matrix). The
-  resampler and the small DCT product stay float32.
-- ``default`` without the kernel, ``high``, ``bf16`` and ``int8`` are not
-  ported yet and raise ``NotImplementedError`` (ROADMAP A10).
+- ``frontend_precision: highest`` (the default): float32 products, TF32 off.
+- ``high``: the TPU's ``Precision.HIGH``, three bf16 passes (``hi*hi +
+  hi*lo + lo*hi`` of each operand split into a bf16 head and a bf16 tail)
+  with float32 sums: about 16 bits of each operand.
+- ``default``: one bf16 pass, float32 sums and a float32 result (the JAX
+  package's ``preferred_element_type=float32``). With ``pallas_frontend: on``
+  and power 2 the DFT -> power -> mel stage is kernel 1 instead
+  (``mel_kernel.fused_mel_power``: the same roundings plus a bf16 power),
+  on CUDA tensors, and its plain version on CPU tensors, for phase-grouped
+  frames and the waveform path's frames alike (there with one phase and the
+  window-folded DFT matrix); power other than 2 takes the GEMMs, as the JAX
+  package falls back to its GEMM pair.
+- ``bf16``: ``default`` with the phase-grouped spectrum stored in bf16.
+- ``int8``: ``default``, and the ``(q, scale)`` frames of
+  :meth:`SpectralFrontend.frame_host_int8` go through an int8 x int8 ->
+  int32 DFT (``FusedFrameDFT.power_int8``) with the column scales folded into
+  the mel rows and the clip scales into the mel output.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config, load_config
+from .int8 import _round_up
 from .mel_kernel import MelKernelFrontend
 from .resample import Resampler
 
@@ -153,12 +165,35 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int, center: bool,
     return x.unfold(-1, n_fft, hop)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def posture_matmul(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """``a @ b`` with float32 output, its operands rounded as ``precision``
+    says: ``highest`` float32; ``default`` (and ``bf16``, ``int8``) one bf16
+    pass, as the float32 product of the bf16-rounded operands (each product
+    of two bf16 values is exact in float32, so this is a bf16 GEMM with
+    float32 sums); ``high`` three bf16 passes, ``hi*hi + hi*lo + lo*hi``,
+    run as one product over a three times longer inner axis."""
+    a, b = a.float(), b.float()
+    if precision == "highest":
+        return torch.matmul(a, b)
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    if precision == "high":
+        a3 = torch.cat([a_hi, a_hi, _bf16(a - a_hi)], dim=-1)
+        b3 = torch.cat([b_hi, _bf16(b - b_hi), b_hi], dim=-2)
+        return torch.matmul(a3, b3)
+    return torch.matmul(a_hi, b_hi)
+
+
 def stft_power(x: torch.Tensor, dft_w: torch.Tensor, n_fft: int, hop: int,
                center: bool = False, pad_mode: str = "reflect",
-               power: float = 2.0) -> torch.Tensor:
-    """(B, samples) -> (B, n_frames, n_freq) power spectrogram (float32 GEMM)."""
+               power: float = 2.0, precision: str = "highest") -> torch.Tensor:
+    """(B, samples) -> (B, n_frames, n_freq) power spectrogram, the GEMM in
+    ``precision`` (``posture_matmul``)."""
     frames = frame_signal(x.float(), n_fft, hop, center, pad_mode)
-    spec = torch.matmul(frames, dft_w)
+    spec = posture_matmul(frames, dft_w, precision)
     n_freq = n_fft // 2 + 1
     p = spec[..., :n_freq] ** 2 + spec[..., n_freq:] ** 2
     if power == 2.0:
@@ -194,30 +229,29 @@ def standardize_per_channel(x: torch.Tensor, e: float = 1e-5) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _posture(cfg: Config) -> bool:
-    """True when the frontend's DFT -> power -> mel runs as kernel 1."""
+POSTURES = ("highest", "high", "default", "bf16", "int8")
+
+
+def _posture(cfg: Config) -> Tuple[str, bool]:
+    """(precision, kernel 1 asked for) from ``tpu_config``: kernel 1 is
+    asked for by ``pallas_frontend: on`` in the postures that run one bf16
+    pass (``default``, ``bf16``, ``int8``), as in the JAX package."""
     tc = cfg.raw.get("tpu_config") or {}
     prec = str(tc.get("frontend_precision", "highest")).lower()
-    if prec == "highest":
-        return False
-    if prec == "default":
-        if str(tc.get("pallas_frontend", "off")).lower() != "on":
-            raise NotImplementedError(
-                "frontend_precision 'default' runs only through kernel 1 in the "
-                "port; set tpu_config.pallas_frontend: on (ROADMAP A10)")
-        return True
-    if prec in ("high", "bf16", "int8"):
-        raise NotImplementedError(
-            f"frontend_precision '{prec}' is not ported yet (ROADMAP A10)")
-    raise ValueError(f"unknown frontend_precision '{prec}'")
+    if prec not in POSTURES:
+        raise ValueError(f"unknown frontend_precision '{prec}'")
+    on = str(tc.get("pallas_frontend", "off")).lower() == "on"
+    return prec, on and prec in ("default", "bf16", "int8")
 
 
 class MelBranch(nn.Module):
     """One MelSpectrogram equivalent (window-folded DFT GEMM + mel GEMM), with
     torchaudio's MelSpectrogram defaults for missing keys."""
 
-    def __init__(self, mel_cfg: dict, sr_model: int, use_kernel: bool = False):
+    def __init__(self, mel_cfg: dict, sr_model: int, use_kernel: bool = False,
+                 precision: str = "highest"):
         super().__init__()
+        self.precision = precision
         self.n_fft = int(mel_cfg.get("n_fft", 400))
         self.win_length = int(mel_cfg.get("win_length") or self.n_fft)
         self.hop = int(mel_cfg.get("hop_length") or self.win_length // 2)
@@ -238,9 +272,7 @@ class MelBranch(nn.Module):
         )
         self.register_buffer("mel_fb", torch.from_numpy(self.mel_fb_np), persistent=False)
         self.kernel = None
-        if use_kernel:
-            if self.power != 2.0:
-                raise NotImplementedError("kernel 1 computes power 2 only (ROADMAP A10)")
+        if use_kernel and self.power == 2.0:  # kernel 1 computes power 2 only
             self.kernel = MelKernelFrontend(dft_w[None], self.mel_fb_np)
         else:
             self.register_buffer("dft_w", torch.from_numpy(dft_w), persistent=False)
@@ -251,8 +283,8 @@ class MelBranch(nn.Module):
             frames = frame_signal(x.float(), self.n_fft, self.hop, self.center, self.pad_mode)
             return self.kernel(frames.contiguous()[:, None])[:, 0]
         p = stft_power(x, self.dft_w, self.n_fft, self.hop, self.center,
-                       self.pad_mode, self.power)
-        return torch.matmul(p, self.mel_fb)
+                       self.pad_mode, self.power, self.precision)
+        return posture_matmul(p, self.mel_fb, self.precision)
 
 
 class SpectralFrontend(nn.Module):
@@ -271,17 +303,25 @@ class SpectralFrontend(nn.Module):
         self.cfg = cfg
         mel_cfg = cfg.raw["melspectrogram_config"]
         mfcc_cfg = cfg.raw["mfcc_config"]
-        self.use_kernel = _posture(cfg)
+        self.precision, kernel = _posture(cfg)
+        tc = cfg.raw.get("tpu_config") or {}
+        self.fused_storage_dtype = torch.bfloat16 if self.precision == "bf16" else None
+        self.fused_int8 = self.precision == "int8"
+        # int8 posture only: the DFT's int32 accumulator stored in bf16
+        self.int8_spectrum_dtype = (
+            torch.bfloat16 if str(tc.get("int8_spectrum", "int32")).lower() in ("bf16", "bfloat16")
+            else None)
         self.sr_in = cfg.sample_rate
         self.sr_model = cfg.new_sample_rate
         self.resampler = Resampler(self.sr_in, self.sr_model)
 
-        self.mel = MelBranch(mel_cfg, self.sr_model, self.use_kernel)
+        self.mel = MelBranch(mel_cfg, self.sr_model, kernel, self.precision)
+        self.use_kernel = self.mel.kernel is not None
         self.n_mels = self.mel.n_mels
         mk = dict(mfcc_cfg.get("melkwargs") or {})
         self.shared_mel = mk == dict(mel_cfg)
         self.mfcc_mel = (self.mel if self.shared_mel
-                         else MelBranch(mk, self.sr_model, self.use_kernel))
+                         else MelBranch(mk, self.sr_model, kernel, self.precision))
         self.n_mfcc = int(mfcc_cfg["n_mfcc"])
         self.log_mels = bool(mfcc_cfg.get("log_mels", False))
         self.register_buffer("dct_m", torch.from_numpy(dct_matrix(
@@ -316,6 +356,19 @@ class SpectralFrontend(nn.Module):
             else:
                 self.register_buffer("fused_c", torch.from_numpy(self.fused.c),
                                      persistent=False)
+            if self.fused_int8:
+                # C_r in int8, zero-padded to the card's GEMM multiples and
+                # held K-major (column-major (K, N) per phase, as ``_int_mm``
+                # takes it); s_k**2 folded into the mel rows in float64
+                c_i8, s_k = self.fused.int8_matrix()
+                r, f, n = c_i8.shape
+                padded = np.zeros((r, _round_up(n, 8), _round_up(f, 8)), np.int8)
+                padded[:, :n, :f] = c_i8.transpose(0, 2, 1)
+                self.register_buffer("fused_c_i8", torch.from_numpy(padded).transpose(1, 2),
+                                     persistent=False)
+                mel_fb_i8 = (np.asarray(self.mel.mel_fb_np, np.float64)
+                             * (np.asarray(s_k, np.float64)[:, None] ** 2)).astype(np.float32)
+                self.register_buffer("mel_fb_i8", torch.from_numpy(mel_fb_i8), persistent=False)
 
     def frame_host(self, audio: np.ndarray, alloc=None) -> np.ndarray:
         """Host framing for the fused path: (B, S) or (B, 1, S) raw audio
@@ -328,10 +381,49 @@ class SpectralFrontend(nn.Module):
             audio = audio[:, 0, :]
         return self.fused.frame_host(audio, alloc=alloc)
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        """``audio``: (B, S) or (B, 1, S) waveform at the dataset rate, or
-        (B, n_ph, n_groups, frame_len) frames from :meth:`frame_host`.
-        int16 input is dequantized as PCM16 (x / 32768)."""
+    def frame_host_int8(self, audio: np.ndarray, alloc=None):
+        """Host framing and per-clip symmetric int8 quantization for the
+        ``int8`` posture: (B, S) or (B, 1, S) raw audio -> ``(q (B, n_ph,
+        n_groups, frame_len) int8, scale (B,) float32)``, ``q * scale`` the
+        float frames (int16 read as x / 32768). The JAX package's numpy
+        arithmetic, bit for bit. ``alloc(shape, dtype)``, when given, returns
+        the array ``q`` is written into (a pinned host buffer, say)."""
+        frames = self.frame_host(audio)
+        if frames.dtype == np.int16:
+            f = frames.astype(np.float32) * (1.0 / 32768.0)
+        else:
+            f = frames.astype(np.float32)
+        a = np.abs(f).max(axis=(1, 2, 3))
+        scale = (np.maximum(a, 1e-12) / 127.0).astype(np.float32)
+        q = np.clip(np.round(f / scale[:, None, None, None]), -127, 127)
+        if alloc is None:
+            return q.astype(np.int8), scale
+        out = alloc(q.shape, np.int8)
+        out[...] = q
+        return out, scale
+
+    def _fused_int8_mel(self, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        """(q int8 frames, per-clip scale) -> (B, n_ph, G, n_mels) mel power in
+        phase order: the unscaled int8 power through the mel rows that carry
+        ``s_k**2``, then times ``scale**2``."""
+        if self.mel.power != 2.0:
+            raise ValueError("frontend_precision 'int8' requires power=2")
+        p = self.fused.power_int8(q, self.fused_c_i8, self.int8_spectrum_dtype)
+        mel_rg = posture_matmul(p, self.mel_fb_i8, self.precision)
+        return mel_rg * (scale.float()[:, None, None, None] ** 2)
+
+    def forward(self, audio) -> torch.Tensor:
+        """``audio``: (B, S) or (B, 1, S) waveform at the dataset rate,
+        (B, n_ph, n_groups, frame_len) frames from :meth:`frame_host`, or in
+        the ``int8`` posture the ``(q, scale)`` tuple of
+        :meth:`frame_host_int8`. int16 input is dequantized as PCM16
+        (x / 32768)."""
+        if isinstance(audio, (tuple, list)):
+            if not self.fused_int8 or self.fused is None:
+                raise ValueError("(q, scale) framed-int8 input requires tpu_config."
+                                 "frontend_precision: int8 and the fused path")
+            mel_rg = self._fused_int8_mel(*audio)
+            return self._images(self.fused.reorder_frames(mel_rg), None)
         if audio.dim() == 4:
             if self.fused is None:
                 raise ValueError("framed input given but fused path unavailable")
@@ -339,9 +431,11 @@ class SpectralFrontend(nn.Module):
                 mel_rg = self.fused_kernel(audio.contiguous())
             else:
                 # project to mel in phase order, then restore time order
-                mel_rg = torch.matmul(
-                    self.fused(audio, self.fused_c, power=self.mel.power, reorder=False),
-                    self.mel.mel_fb)
+                mel_rg = posture_matmul(
+                    self.fused(audio, self.fused_c, power=self.mel.power, reorder=False,
+                               precision=self.precision,
+                               storage_dtype=self.fused_storage_dtype),
+                    self.mel.mel_fb, self.precision)
             return self._images(self.fused.reorder_frames(mel_rg), None)
         if audio.dim() == 3:
             audio = audio[:, 0, :]

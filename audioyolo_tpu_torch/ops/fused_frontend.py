@@ -13,6 +13,12 @@ one GEMM per phase.
 A 2-D int16 batch is framed by the native C memcpy loop
 (``data/native.py::frame_i16``); other input by the numpy form, which is
 also the tests' reference.
+
+The ``int8`` posture runs the GEMM on int8 frames against an int8 copy of
+``C_r`` (:meth:`FusedFrameDFT.int8_matrix`, one scale per frequency shared by
+its real and imaginary columns) with int32 sums (:meth:`power_int8`, through
+``ops/int8.py``); the scales fold into the mel filterbank and the mel output
+(``ops/frontend.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .frontend import dft_power_matrix, hann_window
+from .frontend import dft_power_matrix, hann_window, posture_matmul
+from .int8 import int8_mm
 from .resample import sinc_resample_kernel
 
 
@@ -145,23 +153,69 @@ class FusedFrameDFT:
         ]
         return np.stack(phases, axis=-3)
 
+    def int8_matrix(self):
+        """``(c_i8 (n_ph, F, 2*n_freq) int8, s_k (n_freq,) float32)``: ``C``
+        quantized per frequency column, symmetric, with one scale for a
+        frequency's real and imaginary columns so that ``s_k**2`` folds into
+        the mel filterbank's rows. float64 numpy, as the JAX package computes
+        it, cached."""
+        if not hasattr(self, "_c_i8"):
+            c = np.asarray(self.c, np.float64)
+            nf = self.n_freq
+            colmax = np.abs(c).max(axis=(0, 1))
+            s_k = np.maximum(np.maximum(colmax[:nf], colmax[nf:]), 1e-30) / 127.0
+            sc = np.concatenate([s_k, s_k])
+            self._c_i8 = np.clip(np.round(c / sc), -127, 127).astype(np.int8)
+            self._sk = s_k.astype(np.float32)
+        return self._c_i8, self._sk
+
+    def power_int8(self, q: torch.Tensor, c_i8: torch.Tensor,
+                   storage_dtype=None) -> torch.Tensor:
+        """(B, n_ph, n_groups, frame_len) int8 frames -> (B, n_ph, n_groups,
+        n_freq) float32 power in phase order, unscaled: the true power over
+        ``(s_clip * s_k)**2``.
+
+        ``c_i8`` is :meth:`int8_matrix`'s matrix as a tensor on ``q``'s
+        device, (n_ph, K, N) with K >= frame_len and N >= 2*n_freq (zero
+        padding is exact). One int32 GEMM per phase (``int8_mm``), exact:
+        |acc| <= 127 * 127 * frame_len. ``storage_dtype=torch.bfloat16``
+        rounds the accumulator to bf16 before the power, as
+        ``tpu_config.int8_spectrum: bf16`` asks.
+        """
+        b, r, g, f = q.shape
+        kp = c_i8.shape[1]
+        if kp != f:
+            q = F.pad(q, (0, kp - f))
+        acc = torch.stack([int8_mm(q[:, i].reshape(b * g, kp), c_i8[i]).reshape(b, g, -1)
+                           for i in range(r)], dim=1)
+        af = acc.to(storage_dtype).float() if storage_dtype is not None else acc.float()
+        nf = self.n_freq
+        return af[..., :nf] ** 2 + af[..., nf:2 * nf] ** 2
+
     def reorder_frames(self, x: torch.Tensor) -> torch.Tensor:
         """(B, n_ph, n_groups, C) phase order -> (B, n_frames, C) time order
         (frame f = g*n_ph + r)."""
         return x.transpose(1, 2).reshape(x.shape[0], self.n_frames, x.shape[-1])
 
     def __call__(self, framed: torch.Tensor, c: torch.Tensor, power: float = 2.0,
-                 reorder: bool = True) -> torch.Tensor:
+                 reorder: bool = True, precision: str = "highest",
+                 storage_dtype=None) -> torch.Tensor:
         """(B, n_ph, n_groups, frame_len) -> power spectrogram, float32.
 
         ``c`` is ``self.c`` as a float32 tensor on ``framed``'s device. One
-        float32 GEMM per phase (the ``highest`` posture). int16 frames are
-        dequantized as PCM16 (x / 32768). Returns (B, n_frames, n_freq) when
+        GEMM per phase in ``precision`` (``frontend.posture_matmul``). int16
+        frames are dequantized as PCM16 (x / 32768). ``storage_dtype=
+        torch.bfloat16`` (the ``bf16`` posture) runs the GEMM on bf16
+        operands and rounds the spectrum to bf16 before the power, as the
+        JAX package stores it. Returns (B, n_frames, n_freq) when
         ``reorder``, else (B, n_ph, n_groups, n_freq) in phase order.
         """
         if not framed.is_floating_point():
             framed = framed.float() * (1.0 / 32768.0)
-        spec = torch.matmul(framed.float(), c.unsqueeze(0))
+        if storage_dtype is not None:
+            spec = posture_matmul(framed, c.unsqueeze(0), "default").to(storage_dtype).float()
+        else:
+            spec = posture_matmul(framed, c.unsqueeze(0), precision)
         nf = self.n_freq
         p = spec[..., :nf] ** 2 + spec[..., nf:] ** 2
         if reorder:

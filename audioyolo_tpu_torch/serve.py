@@ -16,12 +16,15 @@ Requests are served one at a time (one device, one lock).
 
 Usage:
   python -m audioyolo_tpu_torch.serve --model_path weights.pt \
-      [--config config/config.yaml] [--port 8700] [--bf16]
+      [--config config/config.yaml] [--port 8700] [--bf16] [--int8_calib calib.wav]
 
 ``--model_path`` is a ``torch.save``d train-form state dict of the port's
 ``AudioDetectionModel`` (``models/from_jax.py`` converts JAX variables); it
 is folded to the deploy form at load. ``--bf16`` runs the backbone and neck
-in bfloat16 on the same float32 weights.
+in bfloat16 on the same float32 weights; ``--int8_calib`` runs the int8 body
+(``models/quant.py``) at scales calibrated on the first windows of a WAV.
+Files at the model rate are framed on the host (``frame_host``, or
+``frame_host_int8`` under ``frontend_precision: int8``).
 """
 
 from __future__ import annotations
@@ -53,13 +56,18 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
                     state_dict: Optional[Dict[str, torch.Tensor]] = None,
                     class_map_path: Optional[str] = None, batch_size: int = 0,
                     iou_threshold: float = 0.1, conf_threshold: float = 0.2,
-                    device: DeviceLike = None, dtype: Optional[torch.dtype] = None) -> dict:
+                    device: DeviceLike = None, dtype: Optional[torch.dtype] = None,
+                    int8_calib: Optional[str] = None) -> dict:
     """Load the model and build the inference function once.
 
     Weights come from ``state_dict`` (train form, in memory) or else from
     ``model_path``. ``device`` defaults to the card; ``dtype`` is the body's
-    compute dtype (``torch.bfloat16`` for ``--bf16``).
+    compute dtype (``torch.bfloat16`` for ``--bf16``); ``int8_calib`` a WAV
+    whose first windows calibrate the int8 body.
     """
+    from .inference_cli import load_calib_batch, model_input_on
+    from .models.quant import calibrate_quant, set_quant
+
     dev = resolve_device(device)
     cfg = load_config(config)
     tc = cfg.raw["train_config"]
@@ -71,15 +79,23 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
         state_dict = torch.load(model_path, map_location="cpu", weights_only=True)
     model = AudioDetectionModel.from_config(cfg, num_classes=len(idx2class), deploy=True,
                                             dtype=dtype)
-    keep_k = int((cfg.raw.get("tpu_config") or {}).get("nms_keep", 128))
-    infer_fn = make_inference_fn(model, fold_repvgg(state_dict), iou_threshold,
-                                 conf_threshold, keep_k=keep_k, packed=True, device=dev)
     fe = model.frontend
+    frame_fn = None if fe.fused is None else (fe.frame_host_int8 if fe.fused_int8
+                                              else fe.frame_host)
+    state_dict = fold_repvgg(state_dict)
+    if int8_calib:
+        model.load_state_dict(state_dict)
+        model.to(dev).eval()
+        calib = load_calib_batch([int8_calib], cfg, frame_fn=frame_fn)
+        set_quant(model, calibrate_quant(model, [model_input_on(calib, dev)]))
+    keep_k = int((cfg.raw.get("tpu_config") or {}).get("nms_keep", 128))
+    infer_fn = make_inference_fn(model, state_dict, iou_threshold,
+                                 conf_threshold, keep_k=keep_k, packed=True, device=dev)
     return {
         "cfg": cfg,
         "idx2class": idx2class,
         "infer_fn": infer_fn,
-        "frame_fn": fe.frame_host if fe.fused is not None else None,
+        "frame_fn": frame_fn,
         "batch_size": batch_size or int(tc["batch_size"]),
         "lock": threading.Lock(),
         "config_path": config if isinstance(config, str) else "<in memory>",
@@ -175,12 +191,15 @@ def main() -> None:
     p.add_argument("--iou_threshold", type=float, default=0.1, metavar="")
     p.add_argument("--conf_threshold", type=float, default=0.2, metavar="")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute for the detector body")
+    p.add_argument("--int8_calib", type=str, default="", metavar="",
+                   help="wav file to calibrate an int8 detector body on")
     args = p.parse_args()
 
     state = build_app_state(
         args.config, model_path=args.model_path, class_map_path=args.class_map_path or None,
         batch_size=args.batch_size, iou_threshold=args.iou_threshold,
-        conf_threshold=args.conf_threshold, dtype=torch.bfloat16 if args.bf16 else None)
+        conf_threshold=args.conf_threshold, dtype=torch.bfloat16 if args.bf16 else None,
+        int8_calib=args.int8_calib or None)
     httpd = serve(state, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port} "
           f"(classes: {list(state['idx2class'].values())})")

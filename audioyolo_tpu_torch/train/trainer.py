@@ -111,10 +111,13 @@ class TrainerPipeline:
 
     def put_batch(self, batch: Dict[str, np.ndarray]):
         """A loader batch -> (audio, targets) on the device: pinned host
-        copies sent with ``non_blocking`` (the host runs on meanwhile)."""
+        copies sent with ``non_blocking`` (the host runs on meanwhile). The
+        ``(q, scale)`` audio of the ``int8`` posture moves as a tuple."""
         cuda = self.device.type == "cuda"
 
         def put(x):
+            if isinstance(x, tuple):
+                return tuple(put(a) for a in x)
             t = torch.from_numpy(np.ascontiguousarray(x))
             return t.pin_memory().to(self.device, non_blocking=True) if cuda else t
 

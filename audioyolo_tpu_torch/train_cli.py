@@ -131,10 +131,18 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
         prng_impl=tpu_cfg.get("train_prng") or None, device=device)
 
     # frame on the loader's prefetch thread, so the card's frontend is GEMMs;
-    # the framer also opens the native decode straight into int16 frames
+    # the framer also opens the native decode straight into int16 frames.
+    # frontend_precision: int8 ships frame_host_int8's (q, scale) instead
+    # (the native decode makes no tuples, so it stays off there)
     fe = model.frontend
-    framer = fe.fused if bool(tpu_cfg.get("framed_input", True)) else None
-    kw = dict(transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), framer=framer)
+    framer = frame_fn = None
+    if bool(tpu_cfg.get("framed_input", True)) and fe.fused is not None:
+        if fe.fused_int8:
+            frame_fn = fe.frame_host_int8
+        else:
+            framer = fe.fused
+    kw = dict(transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), framer=framer,
+              frame_fn=frame_fn)
     batch_size = int(tc["batch_size"])
     train_loader = BatchLoader(train_ds, batch_size, shuffle=bool(tc.get("shuffle_samples", True)),
                                seed=SEED, **kw)

@@ -76,7 +76,20 @@ Phases, each of which raises on failure:
 10. ``backbone: custom`` (block_layers [2,2,2,2]): the B=32 serving forward
     in float32 and bf16 (kernels 1 and 2 counted), card vs CPU at B=2 on the
     same features (float32 body), two bf16 train steps;
-11. print one JSON line of every kernel's numbers, then the device line.
+11. the int8 postures at B=32: ``int8_mm`` against the int64 product at the
+    int8 paths' shapes; the int8 DFT (``frontend_precision: int8``): its int32
+    accumulators card vs CPU bit for bit, its feature image card vs CPU, its
+    time against kernel 1's on the same clips, the ``(q, scale)`` bytes and
+    copy against the int16 frames'; the calibrated int8 body on kernel 1's
+    posture (kernels 1 and 2 counted): two convs' int32 accumulators card vs
+    CPU bit for bit, predictions against the float32 body, card against CPU
+    on the same features and scales, forward + NMS in turns with float32 and
+    bf16, its top kernels; the waveform batch's int8 transfer against int16;
+    ``inference_cli.main`` with ``--int8``, ``--transfer int8`` and the
+    framed int8 route over phase 7's directory (rows against the float32
+    int16 rows, each miss a flip); ``evaluate_cli.main --int8`` (mAP gap
+    against float32); ``serve --int8_calib`` answering one request;
+12. print one JSON line of every kernel's numbers, then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this file.
@@ -153,6 +166,24 @@ BF16_CONF_GAP = 0.05
 # a flip may free or suppress a neighbour that is near no threshold itself,
 # so up to BF16_UNEXPLAINED_SHARE of the rows may stay unexplained
 BF16_FLIP_TOL, BF16_UNEXPLAINED_SHARE = 0.02, 0.05
+# int8 postures (phase 11): bounds read as phase 9 reads the bf16 body. The
+# int8 body against the float32 body on the card: p99 of |diff| / max|value|
+# (the CPU's witness: JAX's own int8 body against its float32 body at
+# tiny_cfg, 1.5e-2; an H100 80GB HBM3 at 700 W read 1.5e-2), the share of
+# float32 detections with an int8 one of their class (center within
+# BF16_ROW_TOL_S, width within BF16_WIDTH_REL; the H100 read 0.657) and the
+# largest confidence gap of a matched pair (1.0e-2 there). The CLI's rows
+# against the float32 int16 rows: each miss a flip within INT8_FLIP_TOL (a
+# confidence or IoU moved by at most that much, ~5x the largest matched
+# confidence gap, or the NMS cascade that follows), at most
+# INT8_UNEXPLAINED_SHARE unexplained, and at least INT8_CLI_MATCHED_SHARE
+# matched: the seeded model emits chains of overlapping near-equal
+# proposals, so one flip reorders a chain (the H100 matched 36% of the
+# --int8 rows and 53-54% of the int8 transfers', none unexplained), and a
+# body wrong everywhere would match almost none. The evaluator's mAP gap
+# against float32 within MAP_GAP_BOUND.
+INT8_PRED_P99, INT8_ROW_SHARE, INT8_CONF_GAP = 5e-2, 0.5, 0.1
+INT8_FLIP_TOL, INT8_UNEXPLAINED_SHARE, INT8_CLI_MATCHED_SHARE = 0.05, 0.05, 0.25
 
 
 def log(*a):
@@ -1164,7 +1195,7 @@ def _iou(a, b):
     return inter / union if union > 0 else 0.0
 
 
-def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3, flip_tol=None):
+def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3, flip_tol=None, cascade=False):
     """Card rows against CPU rows of one file: each card row is matched to an
     unmatched CPU row of the same class whose start and end lie within
     ``tol`` s. An unmatched row is explained by a flip that a difference of
@@ -1173,9 +1204,11 @@ def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3, flip_tol=None):
     filter), its IoU with another row of either side within ``flip_tol`` of
     ``iou_thr`` (a suppression), or a row of the other side of its class
     overlaps it past ``iou_thr`` with a confidence within ``flip_tol`` (the
-    NMS took the two in the other order). Returns (matched, explained,
-    unexplained rows, max |time diff| and max |confidence diff| over the
-    matched pairs)."""
+    NMS took the two in the other order). With ``cascade``, a row that
+    overlaps an explained row of its class past ``iou_thr`` is explained too
+    (the greedy NMS's cascade: the flipped row suppressed or freed it).
+    Returns (matched, explained, unexplained rows, max |time diff| and max
+    |confidence diff| over the matched pairs)."""
     flip_tol = tol if flip_tol is None else flip_tol
     left, matched, dt, dc = list(cpu), 0, 0.0, 0.0
     unmatched = []
@@ -1202,6 +1235,13 @@ def _compare_rows(card, cpu, conf_thr, iou_thr, tol=1e-3, flip_tol=None):
                  or any(q is not r and abs(_iou(q, r) - iou_thr) <= flip_tol for q in everyone)
                  or swapped(r)]
     unexplained = [r for r in unmatched if not any(r is q for q in explained)]
+    grown = cascade
+    while grown:
+        more = [r for r in unexplained if any(q["class_idx"] == r["class_idx"]
+                                              and _iou(q, r) > iou_thr for q in explained)]
+        explained += more
+        unexplained = [r for r in unexplained if not any(r is q for q in more)]
+        grown = bool(more)
     return matched, len(explained), unexplained, dt, dc
 
 
@@ -1738,6 +1778,375 @@ def phase_custom(dev, card, train_tmp):
                 card_cpu_rel=d, train_losses=losses, train_peak_gib=peak / 2**30)
 
 
+def _int8_acc(q, c_i8):
+    """The int8 DFT's int32 accumulators (B, R, G, N) of ``FusedFrameDFT.
+    power_int8``, kept whole for a bit-for-bit comparison."""
+    import torch
+    import torch.nn.functional as F
+
+    from audioyolo_tpu_torch.ops.int8 import int8_mm
+
+    b, r, g, f = q.shape
+    kp = c_i8.shape[1]
+    qp = F.pad(q, (0, kp - f))
+    return torch.stack([int8_mm(qp[:, i].reshape(b * g, kp), c_i8[i]).reshape(b, g, -1)
+                        for i in range(r)], dim=1)
+
+
+def _conv_acc_pair(conv, x):
+    """One int8 conv on the card's input ``x``: its int32 accumulator and its
+    output, on the card and on the CPU from the same input, ``s_x`` and
+    kernel (the H=1 middle-row slice as ``layers._int8_conv`` takes it)."""
+    import torch
+
+    from audioyolo_tpu_torch.models.layers import _int8_conv, int8_conv_acc
+
+    w = conv.conv.weight
+    xq = torch.clamp(torch.round(x.float() / conv.s_x), -127, 127).to(torch.int8)
+    kh, ph = w.shape[2], conv.padding[0]
+    wk, pad = ((w[:, :, ph:ph + 1], (0, conv.padding[1])) if x.shape[2] == 1 and kh > 1
+               else (w, conv.padding))
+    s_w = torch.clamp_min(wk.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
+    wq = torch.clamp(torch.round(wk / s_w.view(-1, 1, 1, 1)), -127, 127).to(torch.int8)
+    a_card = int8_conv_acc(xq, wq, conv.stride, pad).cpu()
+    a_cpu = int8_conv_acc(xq.cpu(), wq.cpu(), conv.stride, pad)
+    y_card = _int8_conv(x, w, conv.conv.bias, conv.s_x, conv.stride, conv.padding).cpu()
+    b = conv.conv.bias
+    y_cpu = _int8_conv(x.cpu(), w.cpu(), None if b is None else b.cpu(), conv.s_x.cpu(),
+                       conv.stride, conv.padding)
+    return a_card, a_cpu, y_card, y_cpu
+
+
+def phase_int8(dev, card, train_tmp):
+    """Phase 11: the int8 postures at full width, B=32, on seeded weights:
+    the int8 DFT (``frontend_precision: int8``), the calibrated int8 body on
+    kernel 1's posture, ``inference_cli.main --int8`` and ``--transfer int8``
+    over phase 7's directory, ``evaluate_cli.main --int8`` and ``serve
+    --int8_calib``. Kernels 1 and 2 are counted over the whole phase."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from audioyolo_tpu_torch import evaluate_cli, inference_cli, serve
+    from audioyolo_tpu_torch.config import Config, load_config
+    from audioyolo_tpu_torch.infer import make_inference_fn
+    from audioyolo_tpu_torch.infer.streaming import _int8_to_device, _to_device
+    from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg
+    from audioyolo_tpu_torch.models.layers import Conv2d
+    from audioyolo_tpu_torch.models.quant import calibrate_quant, set_quant
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+    from audioyolo_tpu_torch.ops.int8 import int8_mm, int8_mm_plain
+
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                nms_kernel.greedy_suppress_unblocked)
+    checks = []  # (what, holds): every reading is logged before any is asserted
+
+    # the int8 GEMM on the card at the shapes the int8 paths give it
+    rng = np.random.default_rng(11)
+    for m, k, n in ((10, 45, 15), (3840, 1784, 1008), (7680, 1152, 128), (17, 8, 8), (33, 7, 9)):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+        same = torch.equal(int8_mm(a.to(dev), b.to(dev)).cpu(), int8_mm_plain(a, b))
+        checks.append((f"int8_mm ({m}, {k}) x ({k}, {n}) on the card == the int64 product", same))
+    log(f"[int8] int8_mm against the int64 product on the card: "
+        f"{all(h for w, h in checks)} for (10,45,15), (3840,1784,1008), (7680,1152,128), "
+        f"(17,8,8), (33,7,9)")
+
+    # A. the int8 DFT
+    cfg = _serving_config()
+    raw8 = cfg.to_dict()
+    raw8["tpu_config"]["frontend_precision"] = "int8"
+    cfg8 = Config(raw8)
+    fe = SpectralFrontend(cfg).to(dev)
+    fe8 = SpectralFrontend(cfg8).to(dev)
+    clips = np.stack([_unpadded_clip(cfg, 40 + i) for i in range(BATCH)])
+    t0 = time.perf_counter()
+    q, s = fe8.frame_host_int8(clips)
+    quant_host_ms = (time.perf_counter() - t0) * 1e3
+    frames = fe.frame_host(clips)
+    qd, sd_, fd = (torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev),
+                   torch.from_numpy(frames).to(dev))
+    with torch.inference_mode():
+        acc_card = _int8_acc(qd[:2], fe8.fused_c_i8).cpu()
+        acc_cpu = _int8_acc(torch.from_numpy(q[:2]), fe8.fused_c_i8.cpu())
+        checks.append(("int8 DFT accumulators card == CPU (2 clips)",
+                       torch.equal(acc_card, acc_cpu)))
+        img_card = fe8((qd[:2], sd_[:2])).cpu()
+        fe8_cpu = SpectralFrontend(cfg8)
+        img_cpu = fe8_cpu((torch.from_numpy(q[:2]), torch.from_numpy(s[:2])))
+        raw32 = cfg.to_dict()
+        raw32["tpu_config"]["frontend_precision"] = "highest"
+        img_f32 = SpectralFrontend(Config(raw32))(torch.from_numpy(frames[:2]))
+    d = (img_card - img_cpu).abs()
+    mel_rel = (d[..., 0].max() / img_cpu[..., 0].abs().max()).item()
+    mfcc_share = (d[..., 1] > 1e-3).float().mean().item()
+    d32 = (img_card - img_f32).abs()
+    log(f"[int8] int8 DFT accumulators (2 clips, {tuple(acc_card.shape)} int32) card vs CPU: "
+        f"{'bit-equal' if torch.equal(acc_card, acc_cpu) else 'DIFFER'}; feature image card vs "
+        f"CPU: log-mel max |diff| / max {mel_rel:.3e} (bound {FEATURE_MEL_REL_BOUND}), MFCC "
+        f"pixels off by > 1e-3 {mfcc_share:.2e} (bound {FEATURE_MFCC_SHARE_BOUND}); against the "
+        f"float32 frontend on the int16 frames: log-mel mean |diff| {d32[..., 0].mean():.3e}, "
+        f"max {d32[..., 0].max():.3e}")
+    checks.append(("int8 image card vs CPU, log-mel", mel_rel <= FEATURE_MEL_REL_BOUND))
+    checks.append(("int8 image card vs CPU, MFCC share", mfcc_share <= FEATURE_MFCC_SHARE_BOUND))
+
+    with torch.inference_mode():
+        dft_ms = {}
+        for k in ("int8", "kernel1", "int8", "kernel1"):
+            dft_ms[k] = time_ms(lambda: fe8._fused_int8_mel(qd, sd_) if k == "int8"
+                                else fe.fused_kernel(fd), iters=10)
+        _, rows8, k8_ms = _profiled(lambda: fe8._fused_int8_mel(qd, sd_))
+    log(f"[int8] B={BATCH} DFT -> power -> mel: int8 DFT (8 x _int_mm + power + bf16 mel "
+        f"product) {dft_ms['int8']:.3f} ms against kernel 1 {dft_ms['kernel1']:.3f} ms on the "
+        f"same clips (CUDA events, the later of two turns); {k8_ms:.3f} ms of kernels [{card}]")
+    for kms, count, key in rows8[:6]:
+        log(f"[int8]   {kms:8.3f} ms  x{count:<4d} {key[:90]}")
+
+    def copy_ms(arrays):
+        hosts = [torch.from_numpy(a).pin_memory() for a in arrays]
+
+        def run():
+            for h in hosts:
+                h.to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+        return _host_ms(run, reps=7)
+
+    framed_ms = {"q_scale": copy_ms([q, s]), "int16": copy_ms([frames])}
+    log(f"[int8] framed host -> device, pinned: (q, scale) {q.nbytes / 1e6:.1f} + {s.nbytes} B "
+        f"in {framed_ms['q_scale']:.2f} ms against the int16 frames' {frames.nbytes / 1e6:.1f} MB "
+        f"in {framed_ms['int16']:.2f} ms; frame_host_int8 on the host {quant_host_ms:.0f} ms "
+        f"(host clock) [{card}]")
+
+    # B. the calibrated int8 body on kernel 1's posture; from here on the
+    # phase drives the int8 paths, and the kernels' launches are counted
+    for c in counters:
+        c.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    sd = fold_repvgg(_randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen)
+                                   .state_dict(), gen))
+    fns = {name: make_inference_fn(AudioDetectionModel.from_config(cfg, 2, deploy=True,
+                                                                   dtype=dt), sd, device=dev)
+           for name, dt in (("f32", None), ("bf16", torch.bfloat16), ("int8", None))}
+    body = fns["int8"].model
+    with torch.inference_mode():
+        scales = calibrate_quant(body, [fd[:4]])
+    set_quant(body, scales)
+    n_q = sum(m.s_x is not None for m in body.modules() if isinstance(m, Conv2d))
+    fns["int8"](fd)  # warm-up
+    torch.cuda.synchronize()
+    before = {c.__name__: c.launches for c in counters}
+    packed = {"int8": fns["int8"](fd)}
+    torch.cuda.synchronize()
+    one_fwd = {c.__name__: c.launches - before[c.__name__] for c in counters}
+    checks.append(("int8 body forward launches kernels 1 and 2 once",
+                   one_fwd["fused_mel_power"] == 1 and one_fwd["greedy_suppress_blocked"] == 1))
+    packed["f32"] = fns["f32"](fd)
+
+    # one conv's accumulator, card against CPU, on the input the card gave it
+    seen = {}
+    names = ("feature_extractor.layer1_0.conv1", "multiscale_module.conv2_downsample.conv")
+    hooks = [dict(body.named_modules())[n].register_forward_pre_hook(
+        lambda mod, args, n=n: seen.setdefault(n, args[0].detach().clone())) for n in names]
+    with torch.inference_mode():
+        body(fd[:2], combine_scales=True)
+    for h in hooks:
+        h.remove()
+    for n in names:
+        conv = dict(body.named_modules())[n]
+        x = seen[n]
+        with torch.inference_mode():
+            a_card, a_cpu, y_card, y_cpu = _conv_acc_pair(conv, x)
+        same = torch.equal(a_card, a_cpu)
+        checks.append((f"{n} int32 accumulator card == CPU", same))
+        log(f"[int8] {n}: input {tuple(x.shape)}, accumulator {tuple(a_card.shape)} card vs CPU "
+            f"{'bit-equal' if same else 'DIFFER'}; output max |diff| "
+            f"{(y_card - y_cpu).abs().max().item():.3e}")
+    ms = {}
+    for k in ("f32", "int8", "bf16") * 2:
+        ms[k] = time_ms(lambda k=k: fns[k](fd), iters=10)
+    _, rows, kern_ms = _profiled(lambda: fns["int8"](fd))
+    log(f"[int8 body B={BATCH}] {n_q} convs int8; forward+NMS {ms['int8']:.3f} ms against float32 "
+        f"{ms['f32']:.3f} and bf16 {ms['bf16']:.3f} ms in turns (CUDA events, the later of two); "
+        f"{kern_ms:.3f} ms of kernels (profiler on) [{card}]")
+    for kms, count, key in rows[:10]:
+        log(f"[int8 body]   {kms:8.3f} ms  x{count:<4d} {key[:90]}")
+
+    with torch.inference_mode():
+        p = {k: fns[k].model(fd, combine_scales=True).float().cpu() for k in ("f32", "int8")}
+    gap = _rel_gap(p["int8"], p["f32"])
+    prow = {k: _packed_rows(v) for k, v in packed.items()}
+    n_f32 = sum(map(len, prow["f32"]))
+    hit, conf_gap = 0, 0.0
+    for a, b in zip(prow["f32"], prow["int8"]):
+        for conf, cls, c, w in a:
+            m = [r for r in b if r[1] == cls and abs(r[2] - c) <= BF16_ROW_TOL_S
+                 and abs(r[3] - w) <= BF16_WIDTH_REL * w]
+            if m:
+                hit += 1
+                conf_gap = max(conf_gap, min(abs(r[0] - conf) for r in m))
+    share = hit / max(n_f32, 1)
+    log(f"[int8 body] int8 vs float32 on the card, {BATCH} clips: predictions median "
+        f"{gap[0]:.3e}, p99 {gap[1]:.3e} (bound {INT8_PRED_P99}); {hit} of {n_f32} float32 "
+        f"detections ({share:.4f}, bound {INT8_ROW_SHARE}) matched; largest confidence gap "
+        f"{conf_gap:.3e} (bound {INT8_CONF_GAP})")
+    checks.append(("int8 vs float32 predictions p99", gap[1] <= INT8_PRED_P99))
+    checks.append(("int8 vs float32 matched share", n_f32 > 0 and share >= INT8_ROW_SHARE))
+    checks.append(("int8 vs float32 confidence gap", conf_gap <= INT8_CONF_GAP))
+
+    # the card's int8 body against the CPU's, same features, same s_x
+    cpu_body = AudioDetectionModel.from_config(cfg, 2, deploy=True)
+    cpu_body.load_state_dict(sd)
+    set_quant(cpu_body.eval(), {k: v.cpu() for k, v in scales.items()})
+    with torch.inference_mode():
+        feats = body.frontend(fd[:2])
+        t0 = time.perf_counter()
+        b_cpu = cpu_body(features=feats.cpu(), combine_scales=True)
+        cpu_s = time.perf_counter() - t0
+        b_card = body(features=feats, combine_scales=True).cpu()
+        f_card = fns["f32"].model(features=feats, combine_scales=True).cpu()
+    g_cpu, yard = _rel_gap(b_card, b_cpu), _rel_gap(b_card, f_card)
+    log(f"[int8 body] card vs CPU, B=2, same features and scales: median {g_cpu[0]:.3e}, p99 "
+        f"{g_cpu[1]:.3e}; bound 2x the card's int8-vs-float32 gap on them (median {yard[0]:.3e}, "
+        f"p99 {yard[1]:.3e}); CPU forward {cpu_s:.1f} s")
+    checks.append(("int8 body card vs CPU", torch.isfinite(b_card).all().item()
+                   and g_cpu[0] <= 2 * yard[0] and g_cpu[1] <= 2 * yard[1]))
+
+    # the waveform batch's int8 transfer against int16, as streaming makes it
+    wave = clips[:, None, :]
+
+    def wave_copy(fn):
+        def run():
+            fn(wave, dev)
+            torch.cuda.synchronize()
+        return run
+
+    wave_ms = {}
+    for k, fn in (("int8", _int8_to_device), ("int16", _to_device)) * 2:
+        wave_ms[k] = _host_ms(wave_copy(fn), reps=7)
+    q8, s8 = _int8_to_device(wave, dev)
+    log(f"[int8] waveform batch host -> device as streaming makes it: int8 {q8.numel() / 1e6:.1f} "
+        f"MB + {s8.numel() * 4} B scales (native quantizer into pinned memory + copy) "
+        f"{wave_ms['int8']:.2f} ms against int16 {wave.nbytes / 1e6:.1f} MB {wave_ms['int16']:.2f} "
+        f"ms (host clock, median of 7, the later of two turns) [{card}]")
+
+    # C. the inference CLI over phase 7's directory
+    tmp = os.path.join(train_tmp, "inference")
+    cfg_path, audio_dir = os.path.join(tmp, "serving.yaml"), os.path.join(tmp, "audio")
+    weights = os.path.join(tmp, "weights.pt")
+    native_dir = os.path.join(tmp, "native_rate")  # --transfer int8 refuses other rates
+    os.makedirs(native_dir, exist_ok=True)
+    for name in sorted(os.listdir(audio_dir)):
+        if not name.startswith("r16k"):
+            shutil.copy(os.path.join(audio_dir, name), os.path.join(native_dir, name))
+    raw8_cli = load_config(cfg_path).to_dict()
+    raw8_cli["tpu_config"]["frontend_precision"] = "int8"
+    cfg8_path = os.path.join(tmp, "serving_int8.yaml")
+    with open(cfg8_path, "w") as f:
+        yaml.safe_dump(raw8_cli, f)
+    conf_thr, iou_thr = 0.2, 0.1
+    rec = _RowRecorder()
+    walls = {}
+    with rec:
+        for run, where, extra in (("f32", audio_dir, []), ("int8", audio_dir, ["--int8"]),
+                                  ("transfer_int8", native_dir, ["--transfer", "int8"]),
+                                  ("framed_int8", native_dir, ["--framed_input", "--transfer",
+                                                               "int8"])):
+            rec.run = run
+            t0 = time.perf_counter()
+            inference_cli.main(["--config", cfg8_path if run == "framed_int8" else cfg_path,
+                                "--output_dir", os.path.join(tmp, "out8", run), "--model_path",
+                                weights, "--audio_dir", where, "--num_concurrency", "4",
+                                "--iou_threshold", str(iou_thr), "--conf_threshold",
+                                str(conf_thr), "--device", dev.type, *extra])
+            torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+    tot = {}
+    for run in ("int8", "transfer_int8", "framed_int8"):
+        t = dict(matched=0, unexplained=0, without_cascade=0, rows=0)
+        for name in sorted(os.listdir(native_dir)):
+            a, b = rec.rows[(run, name)], rec.rows[("f32", name)]
+            m, _, bad, _, _ = _compare_rows(a, b, conf_thr, iou_thr, tol=BF16_ROW_TOL_S,
+                                            flip_tol=INT8_FLIP_TOL, cascade=True)
+            t["without_cascade"] += len(_compare_rows(a, b, conf_thr, iou_thr,
+                                                      tol=BF16_ROW_TOL_S,
+                                                      flip_tol=INT8_FLIP_TOL)[2])
+            t["matched"] += m
+            t["unexplained"] += len(bad)
+            t["rows"] += max(len(a), len(b))
+        tot[run] = t
+        log(f"[int8] inference_cli {run} over {len(os.listdir(native_dir))} native-rate files "
+            f"against the float32 int16 rows: {t['matched']}/{t['rows']} matched (start and end "
+            f"within {BF16_ROW_TOL_S} s, bound {INT8_CLI_MATCHED_SHARE:.0%}), {t['unexplained']} "
+            f"unexplained by a flip within {INT8_FLIP_TOL} or its NMS cascade (bound "
+            f"{INT8_UNEXPLAINED_SHARE:.0%}; {t['without_cascade']} without the cascade); wall "
+            f"{walls[run]:.2f} s against float32's {walls['f32']:.2f} s [{card}]")
+        checks.append((f"inference_cli {run} rows", t["rows"] > 0 and t["unexplained"]
+                       <= INT8_UNEXPLAINED_SHARE * t["rows"]
+                       and t["matched"] >= INT8_CLI_MATCHED_SHARE * t["rows"]))
+    checks.append(("inference_cli --int8 wrote every file",
+                   sum(1 for (r, _) in rec.rows if r == "int8") == len(os.listdir(audio_dir))))
+
+    # D. the evaluator, float32 and --int8, on phase 6's eval split
+    train_cfg = os.path.join(tmp, "train.yaml")
+    eval_args = ["--config", train_cfg, "--dataset_path", os.path.join(train_tmp, "data"),
+                 "--batch_size", str(BATCH), "--device", dev.type]
+    ev = {k: evaluate_cli.main(eval_args + extra) for k, extra in (("f32", []),
+                                                                  ("int8", ["--int8"]))}
+    gaps = {k: abs(ev["int8"][k] - ev["f32"][k]) for k in ev["f32"] if k.startswith("mAP")}
+    log(f"[int8] evaluate_cli --int8: {json.dumps(ev['int8'])}; largest mAP gap against float32 "
+        f"{max(gaps.values()):.3e} (bound {MAP_GAP_BOUND})")
+    checks.append(("evaluate_cli --int8 mAP gap", max(gaps.values()) <= MAP_GAP_BOUND
+                   and ev["int8"]["num_ground_truth"] == ev["f32"]["num_ground_truth"] > 0))
+
+    # E. serve --int8_calib: one request
+    cmap = os.path.join(ROOT, "idx2class_mapping", "class_map.json")
+    calib = os.path.join(native_dir, sorted(os.listdir(native_dir))[0])
+    state = serve.build_app_state(cfg, model_path=weights, class_map_path=cmap,
+                                  batch_size=BATCH, device=dev, int8_calib=calib)
+    httpd = serve.serve(state, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        with open(os.path.join(tmp, "long150.wav"), "rb") as f:
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/detect",
+                                         data=f.read(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, out = r.status, json.loads(r.read())
+        req_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    n_q = sum(m.s_x is not None for m in state["infer_fn"].model.modules()
+              if isinstance(m, Conv2d))
+    log(f"[int8] serve --int8_calib ({n_q} convs int8): 150 s request {status}, "
+        f"{len(out.get('rows', []))} rows, {req_ms:.1f} ms [{card}]")
+    checks.append(("serve --int8_calib answered", status == 200 and set(out) == {"events", "rows"}
+                   and n_q > 0))
+
+    counts = {c.__name__: c.launches for c in counters}
+    log(f"[int8] kernel launches over phase 11: {counts}")
+    for name in ("fused_mel_power", "greedy_suppress_blocked"):
+        checks.append((f"{name} launched in phase 11", counts[name] > 0))
+    failed = [w for w, held in checks if not held]
+    log(f"[int8] {len(checks) - len(failed)} of {len(checks)} checks hold"
+        + (f"; failed: {failed}" if failed else ""))
+    assert not failed, failed
+    return dict(launches=counts, dft_int8_ms=dft_ms["int8"], dft_kernel1_ms=dft_ms["kernel1"],
+                frame_host_int8_ms=quant_host_ms, framed_q_bytes=int(q.nbytes),
+                framed_int16_bytes=int(frames.nbytes), framed_q_copy_ms=framed_ms["q_scale"],
+                framed_int16_copy_ms=framed_ms["int16"], forward_int8_ms=ms["int8"],
+                forward_f32_ms=ms["f32"], forward_bf16_ms=ms["bf16"], kernels_ms=kern_ms,
+                int8_convs=n_q, gap_p99=gap[1], row_share=share, conf_gap=conf_gap,
+                card_cpu_p99=g_cpu[1], wave_int8_copy_ms=wave_ms["int8"],
+                wave_int16_copy_ms=wave_ms["int16"], cli_rows=tot,
+                cli_wall_s=walls, map_gap=max(gaps.values()), serve_request_ms=req_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -1768,6 +2177,7 @@ def main() -> int:
         host = phase_native(dev, card, tmp)
         bf16 = phase_bf16_serving(dev, card)
         custom = phase_custom(dev, card, tmp)
+        int8 = phase_int8(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1777,7 +2187,8 @@ def main() -> int:
         return dict(infer_launches=inference["infer_launches"][name],
                     eval_launches=inference["eval_launches"][name],
                     bf16_launches=bf16["launches"].get(name, 0),
-                    custom_launches=custom["launches"].get(name, 0))
+                    custom_launches=custom["launches"].get(name, 0),
+                    int8_launches=int8["launches"].get(name, 0))
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -1801,6 +2212,7 @@ def main() -> int:
     log(json.dumps({"native": host, "bf16_serving": {k: v for k, v in bf16.items()
                                                      if k != "launches"},
                     "custom": {k: v for k, v in custom.items() if k != "launches"}}))
+    log(json.dumps({"int8": {k: v for k, v in int8.items() if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

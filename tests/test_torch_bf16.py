@@ -12,10 +12,11 @@ test:
   percentile of |diff| / max|value| (observed: port against JAX bf16 about
   0.3-1.1x JAX's bf16-vs-float32 gap, in the highest and the kernel posture,
   train and deploy forms, ResNet and custom backbone);
-- the train step on one shared feature image: the loss and the 10 metrics
-  relative, and the gradients as the median and 90th percentile over tensors
-  of max |diff| / max |grad| and the relative L2 norm over all tensors at
-  once (observed about 0.4-1.2x).
+- the train step on one shared feature image: the gradients as the median
+  and 90th percentile over tensors of max |diff| / max |grad| and the
+  relative L2 norm over all tensors at once (observed about 0.4-1.2x); the
+  loss and the 10 metrics against the first-order effect of JAX's own bf16
+  rounding, read without cancellation (see ``_loss_scale``).
 
 The float32 body is untouched by the dtype plumbing: its 1e-4 parity tests
 (``tests/test_torch_model.py``, ``tests/test_torch_slice.py``) are unchanged.
@@ -146,12 +147,34 @@ def _step_readings(grads, ref_g):
                 grad_l2=float(np.linalg.norm(d) / np.linalg.norm(r)))
 
 
+def _loss_scale(loss_fn, p32, p16):
+    """sum_i |dL/dp_i| * |p16_i - p32_i|: the most that JAX's bf16 rounding of
+    the predictions (``p16`` against ``p32``, per scale) can move the loss to
+    first order, with no cancellation between its terms. ``dL/dp`` is the
+    port's loss at JAX's float32 predictions (the two losses are equal,
+    ``tests/test_torch_train_parts.py``)."""
+    p = [torch.from_numpy(np.asarray(a, np.float32)).requires_grad_() for a in p32]
+    grads = torch.autograd.grad(loss_fn(p)[0], p)
+    return float(sum((g.double().abs() * torch.from_numpy(
+        np.abs(np.asarray(b, np.float64) - np.asarray(a, np.float64)))).sum()
+        for g, a, b in zip(grads, p32, p16)))
+
+
 @pytest.mark.parametrize("backbone", ["resnet", "custom"])
 def test_bf16_train_step_within_twice_the_jax_gap(backbone):
     """One train-mode step (dropout 0) on the port's feature image: JAX's
     float32 and bf16 steps, and the port's bf16 step from the same weights.
-    Readings as the module docstring says; each within 2x JAX's bf16 step
-    against its float32 step."""
+    The gradients are read as the module docstring says, each within 2x
+    JAX's bf16 step against its float32 step.
+
+    The loss is a sum of many rounded terms, so its gap between two bf16
+    steps is mostly cancellation: JAX's own bf16-vs-float32 loss gap read
+    2.3e-3 with the ResNet body and 1.0e-4 with the custom one, and which
+    CPU runs the suite moves such a single scalar across 2x. So the loss
+    gap is held to 2x ``_loss_scale`` (the first-order effect of JAX's bf16
+    rounding of the predictions, without cancellation), and the metrics'
+    relative L2 gap, whose norm the loss terms dominate, to 2x the larger
+    of JAX's own metrics gap and that scale relative to the loss."""
     raw = _raw("highest", backbone)
     fe, framed = _framed(raw, seed=11)
     with torch.no_grad():
@@ -171,18 +194,21 @@ def test_bf16_train_step_within_twice_the_jax_gap(backbone):
                                 features=jnp.asarray(feats), train=True,
                                 mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(1)})
             loss, metrics = jloss(preds, {k: jnp.asarray(x) for k, x in targets.items()})
-            return loss, metrics
+            return loss, (metrics, preds)
 
-        (loss, metrics), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+        (loss, (metrics, preds)), g = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
         ref[name] = (np.array([float(metrics[k]) for k in METRIC_KEYS]),
-                     {k: t.numpy() for k, t in state_dict_from_jax({"params": g}).items()})
+                     {k: t.numpy() for k, t in state_dict_from_jax({"params": g}).items()},
+                     [np.asarray(p, np.float32) for p in preds])
 
     model = AudioDetectionModel.from_config(Config(copy.deepcopy(raw)), 2, dtype=torch.bfloat16)
     model.load_state_dict(state_dict_from_jax(v))
     model.train()
     preds = model(features=torch.from_numpy(feats), generator=torch.Generator())
-    loss, metrics = AudioDetectionLoss(raw["anchors"], **LOSS_KW)(
-        preds, {k: torch.from_numpy(x) for k, x in targets.items()})
+    tloss = AudioDetectionLoss(raw["anchors"], **LOSS_KW)
+    ttargets = {k: torch.from_numpy(x) for k, x in targets.items()}
+    loss, metrics = tloss(preds, ttargets)
     loss.backward()
     m = AudioDetectionLoss.metrics_vector(metrics).detach().numpy().astype(np.float64)
     grads = {k: p.grad.numpy() for k, p in model.named_parameters()}
@@ -195,8 +221,13 @@ def test_bf16_train_step_within_twice_the_jax_gap(backbone):
         return r
 
     ours, jax_gap = readings((m, grads), ref["bf16"]), readings(ref["bf16"], ref["f32"])
+    scale = _loss_scale(lambda p: tloss(p, ttargets), ref["f32"][2], ref["bf16"][2])
+    scale /= abs(ref["bf16"][0][0])
+    bounds = {k: jax_gap[k] for k in ("grad_median", "grad_p90", "grad_l2")}
+    bounds.update(loss=scale, metrics=max(jax_gap["metrics"], scale))
     print(f"[{backbone}] port bf16 vs JAX bf16: "
-          + ", ".join(f"{k} {ours[k]:.3e} (JAX bf16 vs f32 {jax_gap[k]:.3e})" for k in ours))
+          + ", ".join(f"{k} {ours[k]:.3e} (JAX bf16 vs f32 {jax_gap[k]:.3e}, bound/2 "
+                      f"{bounds[k]:.3e})" for k in bounds))
     assert jax_gap["grad_l2"] > 1e-3  # the JAX step really ran a bf16 body
-    for k in ("grad_median", "grad_p90", "grad_l2", "loss", "metrics"):
-        assert ours[k] <= GAP_FACTOR * jax_gap[k], (k, ours[k], jax_gap[k])
+    for k, b in bounds.items():
+        assert ours[k] <= GAP_FACTOR * b, (k, ours[k], b)

@@ -219,18 +219,134 @@ def test_plain_mel_two_passes_match_direct_form(dtype):
     assert rel < 2e-2, rel
 
 
+def _posture_raw(raw, prec, pallas="off"):
+    raw = copy.deepcopy(raw)
+    raw.setdefault("tpu_config", {}).update(frontend_precision=prec, pallas_frontend=pallas)
+    return raw
+
+
+def _posture_images(raw, prec, b, seed=6):
+    """The port's and the JAX package's feature images of the same int16
+    clips in posture ``prec``, waveform and framed, and JAX's ``highest``."""
+    jf = jfe.SpectralFrontend(JConfig(_posture_raw(raw, prec)))
+    tf = tfe.SpectralFrontend(Config(_posture_raw(raw, prec)))
+    rng = np.random.default_rng(seed)
+    wav = (rng.standard_normal((b, jf.cfg.clip_samples)) * 0.1).astype(np.float32)
+    wav16 = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    j32 = np.asarray(jfe.SpectralFrontend(JConfig(copy.deepcopy(raw)))(jnp.asarray(wav16)))
+    out = {}
+    for name, x in (("wave", wav16), ("framed", tf.frame_host(wav16))):
+        with torch.no_grad():
+            out[name] = (tf(torch.from_numpy(x)).numpy(), np.asarray(jf(jnp.asarray(x))))
+    return tf, jf, wav16, out, j32
+
+
+def _bf16_images_close(ours, ref):
+    """The bound of a posture whose GEMM operands the port rounds to bf16
+    where JAX's CPU does not (it ignores ``Precision``): one bf16 rounding
+    (relative 2^-9) of each DFT and mel operand moves the standardized
+    image by 1.5e-3 to 3e-3 on average and by at most 3.8e-2 (observed on
+    the tiny and the shipped config); the bound is about 3x that: mel
+    channel max 0.1 and mean 1e-2, MFCC channel mean 1e-2 and 99th
+    percentile 5e-2 (the second dB map of the MFCC image turns coefficients
+    near 0 into O(1) pixels, so its maximum says nothing)."""
+    assert ours.shape == ref.shape and np.isfinite(ours).all()
+    d = np.abs(ours - ref)
+    assert d[..., 0].max() < 0.1 and d[..., 0].mean() < 1e-2, (d[..., 0].max(), d[..., 0].mean())
+    assert d[..., 1].mean() < 1e-2 and np.percentile(d[..., 1], 99) < 5e-2
+
+
 @pytest.mark.parametrize("prec", ["bf16", "int8", "high"])
 def test_unported_postures_raise(prec, tiny_cfg):
+    """The postures that raised before they were ported now run, on the
+    waveform and on frames, each against its oracle:
+
+    - ``high`` (three bf16 passes, ~16 bits per operand): JAX's ``highest``
+      image at ``_images_close``'s float32 bounds (observed mel max 4e-5);
+    - ``bf16`` and ``int8`` (one bf16 pass; ``bf16`` stores the framed
+      spectrum in bf16): JAX's image in the same posture, which on the CPU
+      runs its GEMMs in float32 on unrounded operands (``bf16``: its DFT on
+      bf16 operands into a bf16 spectrum, as the port), at
+      ``_bf16_images_close``. An unknown posture still raises."""
     raw = tiny_cfg.to_dict()
-    raw["tpu_config"]["frontend_precision"] = prec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfe.SpectralFrontend(Config(raw))
+    tf, _, _, out, j32 = _posture_images(raw, prec, b=2)
+    assert tf.precision == prec and not tf.use_kernel
+    for ours, ref in out.values():
+        if prec == "high":
+            _images_close(ours, j32)
+        else:
+            _bf16_images_close(ours, ref)
+    with pytest.raises(ValueError, match="unknown frontend_precision"):
+        tfe.SpectralFrontend(Config(_posture_raw(raw, "fp8")))
+
+
+@pytest.mark.parametrize("prec", ["default", "bf16", "int8", "high"])
+def test_postures_at_full_width(prec, full_raw):
+    """The shipped config (8 phases, frame_len 1782) at B=1, each posture
+    against its oracle as ``test_unported_postures_raise`` states; without
+    ``pallas_frontend: on`` the ``default`` posture runs the bf16 GEMMs."""
+    tf, _, _, out, j32 = _posture_images(full_raw, prec, b=1)
+    assert not tf.use_kernel
+    for ours, ref in out.values():
+        if prec == "high":
+            _images_close(ours, j32)
+        else:
+            _bf16_images_close(ours, ref)
+
+
+def test_posture_matmul_roundings():
+    """``default``: the float64 product of the bf16-rounded operands (each
+    bf16 product is exact in float32; the float32 sum of 300 terms adds at
+    most ~300 * 2^-24 relative to sum |a||b|); ``high``: within 2^-15 of
+    the float64 product relative to sum |a||b| (bf16 x 3 keeps ~16 bits of
+    each operand); ``highest``: float32."""
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((3, 7, 300)).astype(np.float32)
+    b = rng.standard_normal((300, 40)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    r = lambda t: t.to(torch.bfloat16).double().numpy()  # noqa: E731
+    got = tfe.posture_matmul(ta, tb, "default").double().numpy()
+    assert (np.abs(got - r(ta) @ r(tb)) / scale).max() < 1e-6
+    assert (np.abs(got - exact) / scale).max() > 1e-4  # it did round to bf16
+    got = tfe.posture_matmul(ta, tb, "high").double().numpy()
+    assert (np.abs(got - exact) / scale).max() < 2 ** -15
+    got = tfe.posture_matmul(ta, tb, "highest").double().numpy()
+    assert (np.abs(got - exact) / scale).max() < 1e-6
+
+
+def test_bf16_spectrum_matches_jax(full_raw):
+    """The ``bf16`` posture's framed spectrum against JAX's
+    ``FusedFrameDFT.__call__(storage_dtype=bfloat16)``, which on the CPU
+    too rounds the frames and ``C`` to bf16 and stores the spectrum in bf16:
+    the power agrees to two bf16 ulps of the spectrum (2 * 2^-8 * 2
+    relative, for a float32 sum taken in another order landing on the other
+    side of a rounding), relative to the frame's largest power."""
+    jf = jfe.SpectralFrontend(JConfig(_posture_raw(full_raw, "bf16")))
+    tf = tfe.SpectralFrontend(Config(_posture_raw(full_raw, "bf16")))
+    rng = np.random.default_rng(4)
+    wav = np.clip(rng.standard_normal((1, jf.cfg.clip_samples)) * 3000, -32768,
+                  32767).astype(np.int16)
+    framed = tf.frame_host(wav)
+    ref = np.asarray(jf.fused(jnp.asarray(framed), reorder=False, storage_dtype=jnp.bfloat16))
+    with torch.no_grad():
+        ours = tf.fused(torch.from_numpy(framed), tf.fused_c, reorder=False,
+                        storage_dtype=torch.bfloat16).numpy()
+    rel = np.abs(ours - ref) / ref.max(axis=-1, keepdims=True)
+    assert rel.max() < 2 * 2 ** -8 * 2, rel.max()
+    assert (ours != ref).mean() < 0.05
 
 
 def test_default_posture_runs_kernel_plain_version_on_cpu(tiny_cfg):
     """``default`` + ``pallas_frontend: on``: both the framed and the waveform
     path go through kernel 1's wrapper (its plain version on the CPU) and
-    stay close to the float32 posture."""
+    stay close to the float32 posture. Without the kernel the ``default``
+    posture runs the bf16 GEMMs (``posture_matmul``), held to the kernel's
+    plain version (the same bf16 operands; the kernel rounds re^2 and im^2
+    apart, the GEMMs their sum) at ``_bf16_images_close``. With power 1 the
+    kernel (power 2 only) gives way to the GEMMs, as JAX falls back to its
+    GEMM pair."""
     raw = tiny_cfg.to_dict()
     raw["tpu_config"].update(frontend_precision="default", pallas_frontend="on")
     fe16 = tfe.SpectralFrontend(Config(raw))
@@ -244,8 +360,19 @@ def test_default_posture_runs_kernel_plain_version_on_cpu(tiny_cfg):
     assert torch.isfinite(a).all() and (a - b).abs().mean() < 0.05
     np.testing.assert_allclose(framed.numpy(), a.numpy(), atol=1e-5)
     raw["tpu_config"]["pallas_frontend"] = "off"
-    with pytest.raises(NotImplementedError):
-        tfe.SpectralFrontend(Config(raw))
+    gemm = tfe.SpectralFrontend(Config(copy.deepcopy(raw)))
+    assert gemm.fused_kernel is None and gemm.mel.kernel is None and gemm.precision == "default"
+    with torch.no_grad():
+        _bf16_images_close(gemm(wav).numpy(), a.numpy())
+        _bf16_images_close(gemm(torch.from_numpy(gemm.frame_host(wav.numpy()))).numpy(),
+                           a.numpy())
+    raw["tpu_config"]["pallas_frontend"] = "on"
+    for mel in (raw["melspectrogram_config"], raw["mfcc_config"]["melkwargs"]):
+        mel["power"] = 1
+    p1 = tfe.SpectralFrontend(Config(raw))
+    assert p1.fused_kernel is None and p1.mel.kernel is None and p1.precision == "default"
+    with torch.no_grad():
+        assert torch.isfinite(p1(wav)).all()
 
 
 def test_kernel_posture_rejects_other_mel_widths(tiny_cfg):

@@ -224,16 +224,52 @@ def test_chunk_ranges_concatenate_to_the_whole_file(highest, tmp_path):
     assert evaluate_audio(t_fn, path, "", chunk_range=(3, 5), **kw) == []
 
 
-def test_int8_transfer_is_refused(highest, tmp_path):
-    _, _, t_fn = highest
-    path = str(tmp_path / "a.wav")
-    write_wav(path, synth_clip(8000, 4.0, [], seed=1), 8000)
-    with pytest.raises(NotImplementedError, match="A10"):
-        evaluate_audio(t_fn, path, "", transfer="int8", **KW)
-    with pytest.raises(NotImplementedError, match="A10"):
-        evaluate_files_batched(t_fn, [path], str(tmp_path), transfer="int8", **KW)
+def test_int8_transfer_is_refused(highest, audio_dir, tmp_path, monkeypatch):
+    """``transfer="int8"`` was ported: per-clip int8 waveforms
+    (``quantize_clips_int8``, bit-equal to JAX's) dequantized on the device
+    by ``make_inference_fn(int8_input=True)``, through ``evaluate_audio``
+    and the cross-file ``evaluate_files_batched``, give the JAX package's
+    rows with the same transfer within the slice's tolerances (the same
+    float32 body on the same dequantized samples); a file at another rate,
+    a framer that does not quantize and an unknown transfer raise, as in the
+    JAX package."""
+    import audioyolo_tpu.infer.streaming as j_streaming
+    import audioyolo_tpu_torch.infer.streaming as t_streaming
+    from audioyolo_tpu.infer import evaluate_files_batched as j_batched
+
+    raw, _, t_fn = highest
+    jm = JModel.from_config(raw, num_classes=2)
+    v = _randomize(jax.jit(lambda r, x: jm.init({"params": r}, x, train=False))(
+        jax.random.PRNGKey(2), jnp.zeros((1, 1, JConfig(raw).clip_samples))), seed=4)
+    j_fn = j_make_inference_fn(JModel.from_config(raw, num_classes=2, deploy=True), j_fold(v),
+                               0.1, CONF, keep_k=32, packed=True, int8_input=True)
+    t8 = make_inference_fn(t_fn.model, t_fn.model.state_dict(), 0.1, CONF, keep_k=32,
+                           device="cpu", int8_input=True)
+    paths = sorted(os.path.join(audio_dir, f) for f in os.listdir(audio_dir)
+                   if f != "other_rate.wav")
+    j_rows, t_rows = _recording(monkeypatch, j_streaming), _recording(monkeypatch, t_streaming)
+    assert j_batched(j_fn, paths, str(tmp_path / "jax"), transfer="int8", **KW) == 6
+    assert evaluate_files_batched(t8, paths, str(tmp_path / "port"), transfer="int8", **KW) == 6
+    one = os.path.join(audio_dir, "long.wav")
+    j_one = j_streaming.evaluate_audio(j_fn, one, "", transfer="int8", return_rows=True, **KW)
+    t_one = evaluate_audio(t8, one, "", transfer="int8", return_rows=True, **KW)
+    pairs = [(t_rows[n], j_rows[n]) for n in j_rows] + [(t_one, j_one)]
+    assert sorted(t_rows) == sorted(j_rows) and sum(len(b) for _, b in pairs) > 7
+    for ours, ref in pairs:
+        assert len(ours) == len(ref)
+        for a, b in zip(ours, ref):
+            assert a["class_idx"] == b["class_idx"]
+            assert a["confidence"] == pytest.approx(b["confidence"], abs=1e-4)
+            assert a["start"] == pytest.approx(b["start"], abs=1e-3)
+            assert a["end"] == pytest.approx(b["end"], abs=1e-3)
+    other = os.path.join(audio_dir, "other_rate.wav")
+    with pytest.raises(ValueError, match="native-rate"):
+        evaluate_audio(t8, other, "", transfer="int8", **KW)
+    with pytest.raises(ValueError, match="quantizing framer"):
+        evaluate_files_batched(t_fn, paths[:2], str(tmp_path / "x"), transfer="int8",
+                               frame_fn=t_fn.model.frontend.frame_host, **KW)
     with pytest.raises(ValueError, match="transfer"):
-        evaluate_audio(t_fn, path, "", transfer="int4", **KW)
+        evaluate_audio(t_fn, one, "", transfer="int4", **KW)
 
 
 def _new_threads(before):

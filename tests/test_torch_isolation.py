@@ -84,6 +84,7 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_need_the_card_unless_asked(tiny_cfg):
     """Without ``device=`` every entry point means the CUDA card; with no
     card present each raises instead of running on the CPU."""
+    import numpy as np
     import torch
 
     from audioyolo_tpu_torch import evaluate_cli, inference_cli, serve
@@ -104,6 +105,19 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
         serve.build_app_state(cfg, state_dict={})
     with pytest.raises(RuntimeError, match="CUDA"):
         inference_cli.build_inference(cfg, 2, "model.pt", 0.1, 0.2)
+    calib = np.zeros((1, 1, cfg.clip_samples), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the int8 body and the int8 transfer
+        inference_cli.build_inference(cfg, 2, "model.pt", 0.1, 0.2, int8_calib=calib,
+                                      int8_input=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_inference_fn(model, model.state_dict(), int8_input=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_app_state(cfg, state_dict={}, int8_calib="calib.wav")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference_cli.main(["--model_path", "model.pt", "--audio_dir", ".", "--int8",
+                            "--transfer", "int8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_cli.main(["--dataset_path", ".", "--model_path", "model.pt", "--int8"])
     with pytest.raises(RuntimeError, match="CUDA"):
         inference_cli.main(["--model_path", "model.pt", "--audio_dir", "."])
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -3,9 +3,20 @@
 compiler, every binding bit-equal to the numpy path it replaces and to the
 JAX package's ``audioyolo_tpu.data.native`` on the same inputs; the loader's
 batches bit-equal whichever path reads them; broken input and a failed build
-raise."""
+raise.
 
+The JAX package builds its own library on first use with ``make`` straight
+at its final path (``audioyolo_tpu/data/native.py::_load``), and gives up
+for the life of the process when a load fails. Every xdist worker calls it
+while it collects ``tests/test_native.py``, so on a fresh tree up to six
+``make`` runs race, and a worker that loads a file another linker is still
+writing keeps ``None``: this module's comparisons with the JAX library then
+failed with "native ... unavailable". ``jax_native`` repairs that worker.
+"""
+
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -25,6 +36,33 @@ from audioyolo_tpu_torch.ops.fused_frontend import FusedFrameDFT
 from synth import make_flat_dataset
 
 FRAMERS = {"22050->16000": (22050, 16000), "16000->16000": (16000, 16000)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native():
+    """The JAX package's library, loaded. When its loader gave up in this
+    process, build the library with ``native/Makefile``'s command under a
+    file lock into a temporary name, move it into place with one
+    ``os.replace`` (a reader never sees a partial file), and let the loader
+    try again; a second failure is a real one and raises."""
+    if jnative._load() is not None:
+        return
+    lib_dir = os.path.dirname(jnative._LIB_PATH)
+    tmp = os.path.join(lib_dir, f".libayt_audio.{os.getpid()}.tmp.so")
+    os.makedirs(build.BUILD, exist_ok=True)
+    with open(os.path.join(build.BUILD, "jax_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17", "-Wall",
+                            "-Wextra", "-march=native", "audio_io.cpp", "-o", tmp, "-shared",
+                            "-pthread"], cwd=lib_dir, check=True, capture_output=True)
+            os.replace(tmp, jnative._LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_tried", False)
+        assert jnative._load() is not None, "the JAX package's native library does not load"
 
 
 def _framers(rates, seconds=4):

@@ -388,6 +388,32 @@ def test_train_cli_warns_when_the_config_asks_for_another_dtype(dtype, tmp_path,
     assert np.isfinite(trainer.train_metrics[-1]["aggregate_loss"])
 
 
+def test_train_cli_epoch_in_the_int8_posture(tmp_path, dataset_root, monkeypatch):
+    """``frontend_precision: int8``: the loader ships ``frame_host_int8``'s
+    ``(q, scale)`` frames (the native int16 framed decode makes no tuples,
+    as in the JAX ``train.py``), the trainer moves the tuple to the device
+    and every training and evaluation forward runs the int8 DFT; one epoch's
+    metrics are finite and the saved model serves."""
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+
+    calls = []
+    real = SpectralFrontend._fused_int8_mel
+
+    def counted(self, q, scale):
+        calls.append((q.dtype, tuple(q.shape), scale.dtype))
+        return real(self, q, scale)
+
+    monkeypatch.setattr(SpectralFrontend, "_fused_int8_mel", counted)
+    raw = _cli_raw(tmp_path, dataset_root, epochs=1)
+    raw["tpu_config"].update(frontend_precision="int8", transfer_dtype="int16")
+    trainer = train_cli.run(Config(raw), device="cpu")
+    assert len(calls) == 4  # 3 train batches of 2 and 1 eval batch of 2
+    assert all(c[0] == torch.int8 and c[1][0] == 2 and c[2] == torch.float32 for c in calls)
+    assert np.isfinite(trainer.train_metrics[-1]["aggregate_loss"])
+    assert np.isfinite(trainer.eval_metrics[-1]["aggregate_loss"])
+    assert os.path.isfile(trainer.saved_model_path)
+
+
 def test_training_needs_the_card_unless_asked(tmp_path, dataset_root):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
