@@ -14,9 +14,11 @@ events by 1-D interval IoU (greedy, per class) and prints one JSON object:
 targets' time convention (the window's annotated span), so the number
 measures the task the model was trained on.
 
-The batches come from the port's ``BatchLoader`` (the JAX package's
-device-resident cache gives the same batches and is ROADMAP A8); with
-``--framed_input`` and ``transfer_dtype: int16`` it decodes each batch
+The batches come from the port's ``BatchLoader``; without a host framer the
+split goes through ``DeviceCachedLoader.wrap_from_config`` (the config's
+``device_cache_dataset``, ``auto`` by default: a split that fits
+``device_cache_max_mb`` stays on the device, and its batches reach the model
+without a copy). With ``--framed_input`` and ``transfer_dtype: int16`` it decodes each batch
 straight into int16 frames, and under ``frontend_precision: int8`` it frames
 each batch with ``frame_host_int8`` into the int8 DFT's ``(q, scale)``.
 ``--int8`` runs the int8 body, calibrated on the first four files of the
@@ -31,10 +33,11 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from .config import load_config
 from .data.dataset import AudioDataset
-from .data.loader import BatchLoader
+from .data.loader import BatchLoader, DeviceCachedLoader
 from .device import resolve_device
 from .infer.decode import postprocess_detections, unpack_detections
 from .infer.eval_map import event_average_precision, event_map
@@ -91,9 +94,11 @@ def main(argv=None) -> dict:
                               frame_fn=frame_fn) if args.int8 else None)
     infer_fn = build_inference(cfg, num_classes, model_path, args.iou_threshold,
                                args.conf_threshold, device=device, int8_calib=calib)
-    transfer_dtype = (cfg.raw.get("tpu_config") or {}).get("transfer_dtype", "float32")
+    tpu_cfg = cfg.raw.get("tpu_config") or {}
     loader = BatchLoader(ds, batch_size, shuffle=False, last_batch="partial",
-                         transfer_dtype=transfer_dtype, framer=framer)
+                         transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), framer=framer)
+    if frame_fn is None:  # host framing needs host-resident audio
+        loader = DeviceCachedLoader.wrap_from_config(loader, tpu_cfg, device)
 
     detections, ground_truth = [], []
     clip = 0
@@ -101,7 +106,7 @@ def main(argv=None) -> dict:
         audio = batch["audio"]
         if int8_frames:
             audio = frame_fn(audio[:, 0, :] if audio.ndim == 3 else audio)
-        out = infer_fn(model_input_on(audio, device))
+        out = infer_fn(audio if torch.is_tensor(audio) else model_input_on(audio, device))
         rows = postprocess_detections(unpack_detections(out.cpu().numpy()), cfg.sample_duration,
                                       return_start_end=True)
         b = batch["audio"].shape[0]

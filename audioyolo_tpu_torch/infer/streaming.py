@@ -72,6 +72,26 @@ def quantize_clips_int8(clips: np.ndarray, out: Optional[np.ndarray] = None):
     return out, s.astype(np.float32)
 
 
+def quantize_clips_int8_device(clips: torch.Tensor):
+    """:func:`quantize_clips_int8` for clips already on the device (a
+    ``DeviceCachedLoader`` batch): the same per-clip absmax arithmetic in
+    float32, computed where ``clips`` lies, with no copy through the host.
+    ``clips`` (B, 1, S) int16 or float32 -> ``(q int8, scale float32 (B,))``
+    on ``clips``' device. (The divisor 127 is a tensor: the card divides by
+    a host scalar as a product with its reciprocal, one rounding away from
+    the quotient the CPU and the JAX package take.)"""
+    if clips.dtype == torch.int16:
+        a = clips.to(torch.int32).abs().amax(dim=(1, 2)).float()
+        s = torch.clamp_min(a, 1.0) / torch.full_like(a, 127.0)
+        scale = s * (1.0 / 32768.0)
+    else:
+        a = clips.abs().amax(dim=(1, 2)).float()
+        s = torch.clamp_min(a, 1e-12) / torch.full_like(a, 127.0)
+        scale = s
+    q = torch.clamp(torch.round(clips.float() / s[:, None, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
 def _need_int8_framer(framed) -> None:
     if not isinstance(framed, tuple):
         raise ValueError("transfer='int8' with frame_fn requires a quantizing framer "

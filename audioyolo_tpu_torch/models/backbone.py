@@ -12,13 +12,14 @@
   on its last layer. Pyramid channels 128/256/512/1024 at time widths
   240/120/60/30, all at height 32. Dropout follows every layer in train mode.
 
-Dropout masks come from the ``torch.Generator`` the caller hands in; ``dtype``
-is the compute dtype (``models/layers.py``).
+Dropout masks come from the ``torch.Generator`` the caller hands in, or from
+a :class:`ShardedRng` on a data-parallel rank; ``dtype`` is the compute dtype
+(``models/layers.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -79,7 +80,18 @@ class Bottleneck(nn.Module):
 _BLOCKS = {"BasicBlock": BasicBlock, "Bottleneck": Bottleneck}
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+class ShardedRng(NamedTuple):
+    """A data-parallel rank's dropout source: ``generator`` draws the mask of
+    the whole group's batch (``world`` shards of equal size) and the rank
+    keeps its own shard's rows, so the masks are those of the single-device
+    step on the global batch."""
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Union[torch.Generator, ShardedRng, None]) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep each element with
     probability ``1 - p`` and scale the kept ones by ``1 / (1 - p)``. The
     mask comes from ``generator`` (on ``x``'s device), never the global RNG."""
@@ -88,7 +100,15 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator (generator=...)")
     keep = 1.0 - p
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    # out of place (a rematerialising step saves the mask this op returns);
+    # it draws what empty_like(x).bernoulli_(keep) draws
+    if isinstance(generator, ShardedRng):
+        b = x.shape[0]
+        full = x.new_empty((generator.world * b,) + x.shape[1:])
+        mask = torch.bernoulli(full, keep, generator=generator.generator)
+        mask = mask[generator.rank * b: (generator.rank + 1) * b]
+    else:
+        mask = torch.bernoulli(x.detach(), keep, generator=generator)
     return x * mask * (1.0 / keep)
 
 

@@ -33,10 +33,12 @@ import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import int8_mm
+from ..parallel.dist import all_reduce_sum
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -59,6 +61,13 @@ class BatchNorm(nn.Module):
     towards the batch mean and the unbiased batch variance. The JAX package's
     one-pass form shifted by the running mean agrees where a channel's batch
     mean is near its running mean, and cancels where it is far from it.
+
+    ``process_group`` (set by a data-parallel trainer): train mode
+    normalises by the statistics of the whole group's batch, as the JAX
+    package's step on the global batch does. The sums of x and then of
+    (x - mean)^2 (two passes, as above) are summed over the group with
+    autograd; the running variance takes the global count. Every rank holds
+    a batch of the same shape.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1,
@@ -71,8 +80,11 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.process_group is not None:
+            return self._group_forward(x)
         if x.dtype == self.dtype and x.dtype in (torch.bfloat16, torch.float16):
             # one mixed-precision kernel: reads the bf16 input, normalises in
             # float32 with the float32 statistics and affine, rounds once
@@ -88,6 +100,22 @@ class BatchNorm(nn.Module):
             shape = (1, -1) + (1,) * (x.dim() - 2)
             y = (x - self.running_mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
         return y.to(out_dtype)
+
+    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.dtype or x.dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.process_group)
+        mean = all_reduce_sum(x.sum(dims), self.process_group) / n
+        xc = x - mean.view(shape)
+        var = all_reduce_sum((xc * xc).sum(dims), self.process_group) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * (n / max(n - 1, 1)), alpha=m)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (xc * inv.view(shape) + self.bias.view(shape)).to(out_dtype)
 
 
 class _ConvParams(nn.Module):

@@ -62,7 +62,11 @@ def is_plateau(lr_scheduler_cfg: Optional[Dict[str, Any]], use_lr_scheduler: boo
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], optimizer_cfg: Dict[str, Any],
                    lr_scheduler_cfg: Optional[Dict[str, Any]] = None,
-                   use_lr_scheduler: bool = True) -> torch.optim.Optimizer:
+                   use_lr_scheduler: bool = True,
+                   capturable: bool = False) -> torch.optim.Optimizer:
+    """``capturable=True``: the optimizer's form that a CUDA graph can
+    capture (its step counters on the device); an optimizer without one
+    raises ``NotImplementedError``."""
     cfg = dict(optimizer_cfg)
     name = cfg.pop("name", "Adam")
     lr = float(cfg.pop("lr", 1e-3))
@@ -85,6 +89,13 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], optimizer_cfg: Dict[str
             raise ValueError("Rprop does not take weight_decay (torch has none)")
     else:
         kw["weight_decay"] = wd
+    if capturable:
+        if name in ("SGD", "Adagrad"):
+            raise NotImplementedError(
+                f"steps_per_dispatch > 1 captures the step in a CUDA graph, and torch.optim."
+                f"{name} has no capturable form (ROADMAP A13); use another optimizer or "
+                "steps_per_dispatch: 1")
+        kw["capturable"] = True
     return getattr(torch.optim, name)(params, lr=lr, **kw)
 
 
@@ -116,8 +127,13 @@ def make_lr_scheduler(optimizer: torch.optim.Optimizer,
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Writes ``lr`` into every group; a tensor learning rate (a captured
+    step's) is filled in place."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
 
 class ReduceLROnPlateau:

@@ -21,9 +21,20 @@ dtype. With ``transfer_dtype: int16`` and the fused framer the loaders decode
 each batch straight into int16 frames in one native call
 (``data/native.py``).
 
-Not ported: ``--data_parallel`` (DDP, ROADMAP A9), the device-resident
-dataset cache (``device_cache_dataset: on``), the metric plots, and the
-settings only the TPU has; each raises ``NotImplementedError``.
+``--data_parallel`` (under ``torchrun --nproc_per_node=N``, one process per
+card): each rank loads its shard of every epoch (``last_batch: pad``, the
+global batch ``N * batch_size`` clips in rank order) and the step is the
+single-device step on the global batch (``train/trainer.py``); rank 0 alone
+writes the label map, the saved model, the resume checkpoint and the metric
+CSVs, and every rank resumes from the same checkpoint. Without ``torchrun``'s
+environment it is a world of one (the pad policy, no group).
+
+``tpu_config.device_cache_dataset`` (``auto`` by default, ``on``, ``off``)
+and ``device_cache_max_mb`` (512) keep a split that fits on the device
+(``data/loader.py::DeviceCachedLoader``), as the JAX ``train.py`` does; a
+sharded split is never cached. ``steps_per_dispatch`` and ``train_remat``
+are the trainer's. Not ported: the metric plots and ``train_prng`` (the
+TPU's hardware RNG), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,8 +50,9 @@ import torch
 
 from .config import load_config
 from .data.dataset import AudioConcatDataset, AudioDataset
-from .data.loader import BatchLoader
+from .data.loader import BatchLoader, DeviceCachedLoader
 from .device import DeviceLike, resolve_device
+from .parallel import dist
 from .models.detector import AudioDetectionModel
 from .train.loss import AudioDetectionLoss
 from .train.optim import ReduceLROnPlateau, is_plateau
@@ -104,18 +116,18 @@ def compute_dtype(tpu_cfg) -> torch.dtype | None:
 def run(cfg, resume: bool = False, device: DeviceLike = None,
         data_parallel: bool = False) -> TrainerPipeline:
     """Train as the config says; returns the trainer (its model, metrics)."""
-    if data_parallel:
-        raise NotImplementedError("--data_parallel (DDP) is not ported yet (ROADMAP A9)")
     device = resolve_device(device)
+    group = dist.init(device.type) if data_parallel else None
+    if group is not None and device.type == "cuda":
+        device = resolve_device(f"cuda:{dist.local_rank()}")
+    rank, world = (dist.rank(), dist.world_size()) if group is not None else (0, 1)
     cfg = load_config(cfg)
     tc = cfg.raw["train_config"]
     tpu_cfg = cfg.raw.get("tpu_config") or {}
-    if str(tpu_cfg.get("device_cache_dataset", "auto")).lower() in ("true", "1", "on"):
-        raise NotImplementedError(
-            "device_cache_dataset: on (DeviceCachedLoader) is not ported yet (ROADMAP)")
 
     train_ds, eval_ds = resolve_datasets(cfg)
-    AudioDataset.save_label_map(train_ds.class2idx, tc["class_map_path"])
+    if rank == 0:  # one writer on a shared filesystem
+        AudioDataset.save_label_map(train_ds.class2idx, tc["class_map_path"])
     num_classes = len(train_ds.class2idx)
     model = AudioDetectionModel.from_config(cfg, num_classes,
                                             generator=torch.Generator().manual_seed(SEED),
@@ -128,7 +140,7 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
         ema_config=tc.get("ema_config"), use_ema=bool(tc.get("use_ema", False)), seed=SEED,
         steps_per_dispatch=int(tpu_cfg.get("steps_per_dispatch", 1)),
         remat=bool(tpu_cfg.get("train_remat", False)),
-        prng_impl=tpu_cfg.get("train_prng") or None, device=device)
+        prng_impl=tpu_cfg.get("train_prng") or None, device=device, process_group=group)
 
     # frame on the loader's prefetch thread, so the card's frontend is GEMMs;
     # the framer also opens the native decode straight into int16 frames.
@@ -142,11 +154,17 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
         else:
             framer = fe.fused
     kw = dict(transfer_dtype=tpu_cfg.get("transfer_dtype", "float32"), framer=framer,
-              frame_fn=frame_fn)
+              frame_fn=frame_fn, last_batch="pad" if data_parallel else "partial",
+              shard=(rank, world) if world > 1 else None)
     batch_size = int(tc["batch_size"])
     train_loader = BatchLoader(train_ds, batch_size, shuffle=bool(tc.get("shuffle_samples", True)),
                                seed=SEED, **kw)
     eval_loader = BatchLoader(eval_ds, batch_size, shuffle=False, **kw)
+    train_loader = DeviceCachedLoader.wrap_from_config(train_loader, tpu_cfg, device)
+    eval_loader = DeviceCachedLoader.wrap_from_config(eval_loader, tpu_cfg, device)
+    for name, ld in (("train", train_loader), ("eval", eval_loader)):
+        if isinstance(ld, DeviceCachedLoader):
+            print(f"[device-cache] {name} dataset resident on device ({ld.nbytes / 1e6:.0f} MB)")
 
     sched_cfg = tc.get("lr_scheduler_config") or {}
     plateau = None
@@ -190,7 +208,8 @@ def main() -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default) or cpu")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="one rank per process under torchrun: shard each batch over the "
+                        "ranks (nccl on the card, gloo on the CPU)")
     args = p.parse_args()
     run(load_config(args.config), resume=args.resume, device=args.device,
         data_parallel=args.data_parallel)

@@ -32,8 +32,10 @@ Phases, each of which raises on failure:
 6. training: a synthetic dataset (64 train and 32 eval clips of 60 s at
    22 050 Hz, two tone classes) written with the port's WAV writer; one
    epoch of the shipped config through ``train_cli.run`` on the card (its
-   ``compute_dtype: bfloat16``: no warning, every conv output bf16, each
-   batch read by the native framed decode) and one through the trainer
+   ``compute_dtype: bfloat16``: no warning, every conv output bf16; under
+   its default ``device_cache_dataset: auto`` both splits are held on the
+   card, read by the native framed decode once, at the cache build) and one
+   through the trainer
    directly on a float32 body (kernel 1 must launch once per training and
    evaluation forward, the 10 metrics finite, the saved model must load into
    the server); the loss must fall over 10 steps on one fixed batch; the
@@ -89,7 +91,20 @@ Phases, each of which raises on failure:
     framed int8 route over phase 7's directory (rows against the float32
     int16 rows, each miss a flip); ``evaluate_cli.main --int8`` (mAP gap
     against float32); ``serve --int8_calib`` answering one request;
-12. print one JSON line of every kernel's numbers, then the device line.
+12. the rest of the training path on phase 6's dataset: the device cache
+    (its batches against ``BatchLoader``'s bit for bit, a bf16 epoch cached
+    and uncached in turns with the bytes each copies from the host,
+    ``quantize_clips_int8_device`` card = CPU bit for bit); ``train_remat``
+    (one float32 and one bf16 step at B=32 with and without it: gradients
+    compared, peak memory of each); ``steps_per_dispatch: 4`` as a CUDA graph
+    (8 float32 and 8 bf16 steps against 8 eager steps on the same batches
+    and seeds: per-step loss and the parameters after the last step, step
+    time eager against graph in turns, the device's busy share of each from
+    a profiler trace, kernel 1's launches per replayed step);
+    ``train_cli.run(data_parallel=True)`` in a one-rank nccl group, then with
+    ``steps_per_dispatch: 4`` over two epochs (the second replays);
+13. print one JSON line of every kernel's numbers (with each path's
+    launches), then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this file.
@@ -105,6 +120,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.request
 import warnings
 
@@ -837,7 +853,7 @@ def phase_training(dev, card, tmp):
 
     from audioyolo_tpu_torch import serve, train_cli
     from audioyolo_tpu_torch.data.dataset import AudioDataset
-    from audioyolo_tpu_torch.data.loader import BatchLoader
+    from audioyolo_tpu_torch.data.loader import BatchLoader, DeviceCachedLoader
     from audioyolo_tpu_torch.models import AudioDetectionModel
     from audioyolo_tpu_torch.models.layers import Conv2d
     from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
@@ -858,14 +874,25 @@ def phase_training(dev, card, tmp):
         c.launches = 0
     # the shipped compute_dtype (bfloat16) trains a bf16 body, with no
     # warning; the loaders decode each batch straight into int16 frames
+    # and, under the config's default device_cache_dataset (auto), each split
+    # fits device_cache_max_mb: the native framed decode runs at the cache
+    # build (a one-clip size probe, then the split in batches), never in the
+    # epoch
     framed_reads = [0]
     load_framed = AudioDataset.load_audio_batch_framed
+    caches = []
+    cache_init = DeviceCachedLoader.__init__
 
     def counted(self, *a, **k):
         framed_reads[0] += 1
         return load_framed(self, *a, **k)
 
+    def cache_built(self, *a, **k):
+        cache_init(self, *a, **k)
+        caches.append((len(self.loader.dataset), self.nbytes, framed_reads[0]))
+
     AudioDataset.load_audio_batch_framed = counted
+    DeviceCachedLoader.__init__ = cache_built
     t0 = time.perf_counter()
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -873,6 +900,7 @@ def phase_training(dev, card, tmp):
             cli_trainer = train_cli.run(cfg, device=dev)
     finally:
         AudioDataset.load_audio_batch_framed = load_framed
+        DeviceCachedLoader.__init__ = cache_init
     cli_s = time.perf_counter() - t0
     after_cli = mel_kernel.fused_mel_power.launches
     dtype_warnings = [str(w.message) for w in caught if "dtype" in str(w.message)]
@@ -899,7 +927,14 @@ def phase_training(dev, card, tmp):
         f"({cli_forwards} via the CLI)")
     assert after_cli == cli_forwards and counts["fused_mel_power"] == forwards, counts
     assert counts["greedy_suppress_blocked"] == counts["greedy_suppress_unblocked"] == 0
-    assert framed_reads[0] == cli_forwards, (framed_reads, cli_forwards)
+    # per split: 1 probe + ceil(n / B) batches, all before its epoch
+    builds = [1 + -(-n // bs) for n, _, _ in caches]
+    log(f"[training] device cache (auto): {[(n, f'{b / 1e6:.0f} MB') for n, b, _ in caches]} "
+        f"(clips, bytes) resident; native framed decodes {framed_reads[0]} = probes and "
+        f"cache builds {builds}, none in the epochs")
+    assert [n for n, _, _ in caches] == [TRAIN_CLIPS, EVAL_CLIPS], caches
+    assert framed_reads[0] == sum(builds) == caches[-1][2], (framed_reads, builds, caches)
+    res["cache_mb"] = [b / 1e6 for _, b, _ in caches]
     res["train_launches"] = counts["fused_mel_power"]
     seen = set()
     hooks = [m.register_forward_hook(lambda mod, inp, out: seen.add(out.dtype))
@@ -911,8 +946,7 @@ def phase_training(dev, card, tmp):
     for h in hooks:
         h.remove()
     log(f"[training] train_cli.run on compute_dtype {cfg.raw['tpu_config']['compute_dtype']}: "
-        f"no dtype warning, conv outputs {sorted(map(str, seen))} (forward hooks), the "
-        f"loaders' native framed decode read {framed_reads[0]} of {cli_forwards} batches")
+        f"no dtype warning, conv outputs {sorted(map(str, seen))} (forward hooks)")
     assert seen == {torch.bfloat16}, seen
     for where, m in (("cli train", cli_trainer.train_metrics[-1]),
                      ("cli eval", cli_trainer.eval_metrics[-1]), ("train", tm), ("eval", em)):
@@ -2147,6 +2181,396 @@ def phase_int8(dev, card, train_tmp):
                 cli_wall_s=walls, map_gap=max(gaps.values()), serve_request_ms=req_ms)
 
 
+# phase 12: the rest of the training path. The graph's steps against eager
+# steps of the same optimizer form (the capturable Adam, its learning rate a
+# tensor) on the same batches and seeds, read as phase 6 reads a step: the
+# per-step loss, and the parameters and the EMA after the last step per
+# tensor as max |diff| / max |move| (median, 90th percentile) and as an L2
+# norm over all tensors against the move. The comparison runs with cuDNN's
+# deterministic algorithms: in its default mode float32 backward sums some
+# gradients in another order from run to run, and Adam passes any rounding
+# on at ~lr a step whatever a gradient's size, so two eager float32 runs of
+# 8 steps read losses 1.0e-3 to 2.0e-3 apart (H100 80GB HBM3, 700 W), as far
+# as the graph reads from either. The bound is twice the spread of two eager
+# runs of the shipped S=1 form, or GRAPH_FLOOR where that spread is 0.
+GRAPH_FLOOR = 1e-6
+# remat against the plain step at B=32, same weights, batch and dropout masks:
+# the recomputed forward is the forward, so only the backward's summation
+# order can differ; per-tensor max |diff| / max |grad|, median / p90 / L2
+REMAT_BOUNDS = {"float32": dict(grad_median=1e-4, grad_p90=1e-3, grad_l2=1e-3),
+                "bfloat16": TRAIN_BODY_BOUNDS}
+GRAPH_STEPS, DISPATCH = 8, 4
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _busy_share(fn):
+    """The device's busy share over one call of ``fn`` (synchronised), from
+    a profiler trace: the union of the device events' intervals over the
+    window's span on the host; their count; and the kernel-1 events (staging
+    + main pass) among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("ayt_window"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "ayt_window"
+              and getattr(e, "device_type", None) != DeviceType.CUDA][0].time_range
+    # device work only: the ranges that record_function and torch.optim open
+    # are mirrored on the device's timeline as user annotations
+    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != "ayt_window" and not e.name.startswith("Optimizer.")]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    k1 = sum(1 for e in kernels if "mel_power" in e.name or "stage_frames" in e.name)
+    return busy / max(window.end - window.start, 1e-9), len(kernels), k1
+
+
+def _param_readings(run, ref, start):
+    """Per tensor max |run - ref| / max |ref - start| (median, p90), and the
+    L2 norm of run - ref over all tensors against that of the move."""
+    import numpy as np
+    import torch
+
+    rel = {k: ((run[k] - ref[k]).abs().max() / (ref[k] - start[k]).abs().max().clamp_min(1e-30))
+           .item() for k in ref}
+    flat = torch.cat([(run[k] - ref[k]).flatten() for k in ref])
+    move = torch.cat([(ref[k] - start[k]).flatten() for k in ref])
+    vals = list(rel.values())
+    return dict(param_median=float(np.median(vals)), param_p90=float(np.percentile(vals, 90)),
+                param_l2=(flat.norm() / move.norm()).item(), worst=max(rel, key=rel.get),
+                worst_rel=max(vals))
+
+
+def phase_train_postures(dev, card, train_tmp):
+    """Phase 12: the device cache, remat, several steps per dispatch as a
+    CUDA graph, and data parallel in a one-rank nccl group, on phase 6's
+    dataset at the shipped config's full width. Kernel 1 is counted over
+    each path's run."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from audioyolo_tpu_torch import train_cli
+    from audioyolo_tpu_torch.config import Config
+    from audioyolo_tpu_torch.data.loader import BatchLoader, DeviceCachedLoader
+    from audioyolo_tpu_torch.infer.streaming import quantize_clips_int8_device
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+    from audioyolo_tpu_torch.train import METRIC_KEYS, TrainerPipeline
+
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                nms_kernel.greedy_suppress_unblocked)
+    checks = []  # (what, holds): every reading is logged before any is asserted
+    res = {}
+    cfg = _train_config(train_tmp)
+    tc = cfg.raw["train_config"]
+    train_ds, eval_ds = train_cli.resolve_datasets(cfg)
+    fe = AudioDetectionModel.from_config(cfg, 2).frontend
+
+    def loader(ds=train_ds, **kw):
+        return BatchLoader(ds, BATCH, seed=5, transfer_dtype="int16", framer=fe.fused, **kw)
+
+    def trainer_for(dtype=None, seed=1, **kw):
+        model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(seed),
+                                                dtype=dtype)
+        return TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
+                               tc["optimizer_config"], tc["lr_scheduler_config"],
+                               model_path=os.path.join(train_tmp, "postures"),
+                               ema_config=tc.get("ema_config"), device=dev, **kw)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    # (a) the cache: its batches against the loader's, bit for bit, on the card
+    cached = DeviceCachedLoader.wrap(loader(), device=dev)
+    assert isinstance(cached, DeviceCachedLoader)
+    same = True
+    for rb, cb in zip(list(loader()), list(cached), strict=True):
+        same &= set(rb) == set(cb) and cb["audio"].device == dev
+        same &= all(np.array_equal(rb[k], cb[k].cpu().numpy() if torch.is_tensor(cb[k]) else cb[k])
+                    for k in rb)
+    log(f"[cache] {TRAIN_CLIPS} clips resident ({cached.nbytes / 1e6:.1f} MB, framed int16); "
+        f"one epoch's batches equal to BatchLoader's: {same}")
+    checks.append(("cached batches equal BatchLoader's on the card", same))
+
+    # epoch time cached against uncached, in turns, and the bytes each copies
+    # from the host (the epoch's numpy arrays: the whole audio uncached, the
+    # targets and the gather's indices cached)
+    copied = [0]
+    put = TrainerPipeline.put_batch
+
+    def counting_put(self, batch):
+        copied[0] += sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray))
+        if torch.is_tensor(batch["audio"]):
+            copied[0] += 8 * batch["audio"].shape[0]  # the gather's int64 indices
+        return put(self, batch)
+
+    bf16 = trainer_for(torch.bfloat16)
+    turns = {"uncached": [], "cached": []}
+    h2d = {}
+    TrainerPipeline.put_batch = counting_put
+    try:
+        for name in ("uncached", "cached", "cached", "uncached"):
+            ld = cached if name == "cached" else loader()
+            copied[0] = 0
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bf16.train(ld)
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+            h2d[name] = copied[0]
+            if name == "cached":
+                res["cache_launches"] = launches()
+    finally:
+        TrainerPipeline.put_batch = put
+    log(f"[cache] bf16 epoch ({TRAIN_CLIPS} clips, {len(cached)} steps) in turns: uncached "
+        f"{', '.join(f'{v:.1f}' for v in turns['uncached'])} ms, cached "
+        f"{', '.join(f'{v:.1f}' for v in turns['cached'])} ms; host->device per epoch "
+        f"uncached {h2d['uncached'] / 1e6:.1f} MB, cached {h2d['cached'] / 1e3:.1f} KB; "
+        f"launches in a cached epoch {res['cache_launches']} [{card}]")
+    checks.append(("kernel 1 launched once per cached step",
+                   res["cache_launches"]["fused_mel_power"] == len(cached)))
+    res.update(epoch_uncached_ms=turns["uncached"], epoch_cached_ms=turns["cached"],
+               h2d_uncached_bytes=h2d["uncached"], h2d_cached_bytes=h2d["cached"])
+
+    # quantize_clips_int8_device on the card against the CPU, bit for bit
+    clips16 = train_ds.load_audio_batch_i16(np.arange(BATCH))
+    clips32 = train_ds.load_audio_batch(np.arange(BATCH))
+    for name, clips in (("int16", clips16), ("float32", clips32)):
+        host = torch.from_numpy(clips)
+        on_card = host.to(dev)
+        q, sc = quantize_clips_int8_device(on_card)
+        q_ref, sc_ref = quantize_clips_int8_device(host)
+        q_off = (q.cpu() != q_ref).sum().item()
+        sc_off = (sc.cpu() != sc_ref).sum().item()
+        equal = q_off == 0 and sc_off == 0
+        ms = time_ms(lambda: quantize_clips_int8_device(on_card), iters=10, warmup=2)
+        log(f"[cache] quantize_clips_int8_device {name} ({BATCH}, 1, {clips.shape[-1]}): card = "
+            f"CPU bit for bit {equal} ({q_off} of q, {sc_off} of the scales differ); {ms:.3f} ms "
+            f"on the card [{card}]")
+        checks.append((f"quantize_clips_int8_device {name} card = CPU", equal))
+        res[f"quantize_{name}_ms"] = ms
+
+    # (b) remat: one step at B=32 with and without it, float32 and bf16
+    batch = next(iter(loader(shuffle=False, prefetch=0)))
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        steps = {}
+        for remat in (False, True):
+            t = trainer_for(dtype, seed=2, remat=remat)
+            x, tg = t.put_batch(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            loss = t.train_step(x, tg)[0].item()
+            peak = torch.cuda.max_memory_allocated(dev)
+            steps[remat] = (loss, {k: p.grad.detach().double().cpu()
+                                   for k, p in t.model.named_parameters()}, peak)
+            del t, x, tg
+        (l0, g0, p0), (l1, g1, p1) = steps[False], steps[True]
+        rel = {k: ((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp_min(1e-30)).item()
+               for k in g0}
+        flat = torch.cat([(g1[k] - g0[k]).flatten() for k in g0])
+        vals = list(rel.values())
+        r = dict(grad_median=float(np.median(vals)), grad_p90=float(np.percentile(vals, 90)),
+                 grad_l2=(flat.norm() / torch.cat([g.flatten() for g in g0.values()]).norm()).item())
+        worst = max(rel, key=rel.get)
+        log(f"[remat {dtype_name}] B={BATCH} step: loss {l1:.6f} vs {l0:.6f}; gradients "
+            + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+            + f", worst {rel[worst]:.3e} ({worst}), largest |diff| {flat.abs().max():.3e}; "
+            f"peak memory {p1 / 2**30:.3f} GiB with remat, {p0 / 2**30:.3f} without [{card}]")
+        bounds = REMAT_BOUNDS[dtype_name]
+        checks.append((f"remat {dtype_name} loss and gradients within {bounds}",
+                       abs(l1 - l0) <= 1e-5 * abs(l0) and all(r[k] < bounds[k] for k in r)))
+        res[f"remat_{dtype_name}"] = dict(r, peak_gib=p1 / 2**30, plain_peak_gib=p0 / 2**30,
+                                          max_abs_diff=flat.abs().max().item())
+
+    # (c) the graph: 8 steps at steps_per_dispatch 4 (the first dispatch eager,
+    # then captured; the second replayed) against 8 eager steps of the same
+    # optimizer form, and the spread of two eager runs of the S=1 form; EMA
+    # on, and the learning rate halved between the two dispatches (the
+    # replay reads it from its tensor)
+    cache_batches = [b for _ in range(GRAPH_STEPS // len(cached)) for b in cached]
+    assert len(cache_batches) == GRAPH_STEPS
+    graph_launches = 0
+    keys = ("loss", "param_median", "param_p90", "param_l2")
+    lr = float(tc["optimizer_config"].get("lr", 1e-3))
+
+    def state(t):
+        return {**{k: p.detach().clone() for k, p in t.model.named_parameters()},
+                **{f"ema.{k}": p.clone() for k, p in t.ema.params.items()}}
+
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        torch.backends.cudnn.deterministic = True
+        try:
+            graph = trainer_for(dtype, seed=3, steps_per_dispatch=DISPATCH, use_ema=True)
+            start = state(graph)
+            dev_batches = [graph.put_batch(b) for b in cache_batches]
+            runs = {}
+            for name, kw in (("eager", {}), ("eager again", {}),
+                             ("eager, capturable form", dict(steps_per_dispatch=DISPATCH))):
+                t = trainer_for(dtype, seed=3, use_ema=True, **kw)
+                rows = []
+                for i, (x, tg) in enumerate(dev_batches):
+                    if i == DISPATCH:
+                        t.set_learning_rate(lr / 2)
+                    rows.append(t.train_step(x, tg))
+                runs[name] = (torch.stack(rows), state(t))
+                del t
+            zero()
+            rows_graph = [graph.train_steps(dev_batches[:DISPATCH])]
+            graph.set_learning_rate(lr / 2)
+            rows_graph.append(graph.train_steps(dev_batches[DISPATCH:]))
+            rows_graph = torch.cat(rows_graph)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        graph_launches += launches()["fused_mel_power"]
+        run_launches = launches()["fused_mel_power"]
+        graphs = list(graph._graphs.values())
+        per_replay_step = graphs[0].launches / DISPATCH if len(graphs) == 1 else float("nan")
+        runs["graph"] = (rows_graph, state(graph))
+
+        def readings(a, b):
+            (ra, pa), (rb, pb) = runs[a], runs[b]
+            pr = _param_readings(pa, pb, start)
+            return dict(loss=((ra[:, 0] - rb[:, 0]).abs() / rb[:, 0].abs()).max().item(),
+                        **{k: pr[k] for k in keys[1:]}, worst=pr["worst"])
+
+        spread = readings("eager again", "eager")
+        got = readings("graph", "eager, capturable form")
+        shipped = readings("graph", "eager")
+        finite = bool(torch.isfinite(rows_graph[:, [0, 1, 2, 5]]).all())
+        del graph
+        # step time per step in turns, in cuDNN's default mode: a fresh graph
+        # trainer (its first dispatch captures) against eager steps of the
+        # S=1 form, on the second dispatch's batches
+        eager = trainer_for(dtype, seed=3)
+        graph = trainer_for(dtype, seed=3, steps_per_dispatch=DISPATCH)
+        last = dev_batches[DISPATCH:]
+        graph.train_steps(last)
+        step_turns = {"eager": [], "graph": []}
+        for name in ("eager", "graph", "graph", "eager"):
+            fn = ((lambda: [eager.train_step(x, tg) for x, tg in last]) if name == "eager"
+                  else (lambda: graph.train_steps(last)))
+            step_turns[name].append(time_ms(fn, iters=3, warmup=1) / DISPATCH)
+        busy_e, n_e, k1_e = _busy_share(lambda: [eager.train_step(x, tg) for x, tg in last])
+        busy_g, n_g, k1_g = _busy_share(lambda: graph.train_steps(last))
+        log(f"[graph {dtype_name}] {GRAPH_STEPS} steps at steps_per_dispatch {DISPATCH}, per-step "
+            f"loss: graph {', '.join(f'{v:.5f}' for v in rows_graph[:, 0].tolist())}; eager "
+            f"{', '.join(f'{v:.5f}' for v in runs['eager'][0][:, 0].tolist())}")
+        for what, r in (("graph vs eager of its optimizer form", got),
+                        ("eager vs eager (the spread)", spread),
+                        ("graph vs eager of the S=1 form", shipped)):
+            log(f"[graph {dtype_name}] {what}: " + ", ".join(f"{k} {r[k]:.3e}" for k in keys)
+                + f" (worst tensor {r['worst']})")
+        log(f"[graph {dtype_name}] kernel 1 launches per replayed step {per_replay_step:g} "
+            f"(recorded at capture, counted per replay), in the graph trainer's run {run_launches}")
+        log(f"[graph {dtype_name}] B={BATCH} step in turns: eager "
+            f"{', '.join(f'{v:.3f}' for v in step_turns['eager'])} ms, graph "
+            f"{', '.join(f'{v:.3f}' for v in step_turns['graph'])} ms; device busy over a "
+            f"dispatch of {DISPATCH} steps: eager {busy_e:.3f} ({n_e} kernels, {k1_e} kernel-1 "
+            f"events), graph {busy_g:.3f} ({n_g} kernels, {k1_g} kernel-1 events) (profiler) "
+            f"[{card}]")
+        bound = {k: max(2 * spread[k], GRAPH_FLOOR) for k in keys}
+        checks.append((f"graph {dtype_name} against eager within twice the eager spread {bound}",
+                       finite and all(got[k] <= bound[k] for k in keys)))
+        checks.append((f"graph {dtype_name}: kernel 1 in each replayed step", per_replay_step == 1))
+        res[f"graph_{dtype_name}"] = dict(
+            against_eager={k: got[k] for k in keys}, spread={k: spread[k] for k in keys},
+            against_s1={k: shipped[k] for k in keys}, eager_step_ms=step_turns["eager"],
+            graph_step_ms=step_turns["graph"], busy_eager=busy_e, busy_graph=busy_g,
+            kernel1_events_eager=k1_e, kernel1_events_graph=k1_g,
+            launches_per_replayed_step=per_replay_step)
+        del eager, graph, dev_batches, last, runs
+    res["graph_launches"] = {"fused_mel_power": graph_launches, "greedy_suppress_blocked": 0,
+                             "greedy_suppress_unblocked": 0}
+
+    # (d) data parallel: train_cli.run(data_parallel=True) in a one-rank nccl
+    # group (torchrun's environment set here), the shipped bf16 config; then
+    # steps_per_dispatch 4 over two epochs of 4 batches (B=16): the first
+    # epoch's dispatch runs eagerly and captures, the second replays
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    dp = {}
+    try:
+        for name, updates in (("dp", {}), ("dp_graph", dict(steps_per_dispatch=DISPATCH))):
+            raw = copy.deepcopy(cfg.to_dict())
+            raw["tpu_config"].update(updates)
+            raw["train_config"].update(model_path=os.path.join(train_tmp, name),
+                                       metrics_path=os.path.join(train_tmp, name))
+            if updates:
+                raw["train_config"].update(batch_size=BATCH // 2, epochs=2)
+            zero()
+            t0 = time.perf_counter()
+            try:
+                tr = train_cli.run(Config(raw), device=dev, data_parallel=True)
+            except Exception:  # logged here, failed below with the other checks
+                log(f"[{name}] train_cli.run(data_parallel=True) raised:\n"
+                    f"{traceback.format_exc()}")
+                checks.append((f"{name}: train_cli.run(data_parallel=True) ran", False))
+                continue
+            torch.cuda.synchronize()
+            dp[name] = dict(s=time.perf_counter() - t0, launches=launches(), trainer=tr,
+                            backend=torch.distributed.get_backend(tr.group))
+            del tr
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name, d in dp.items():
+        tr = d["trainer"]
+        metrics = tr.train_metrics + tr.eval_metrics
+        graphs = list(tr._graphs.values())
+        log(f"[{name}] train_cli.run(data_parallel=True): {d['backend']} group of {tr.world}, "
+            f"{len(tr.train_metrics)} epoch(s), {tr.step} steps in {d['s']:.1f} s, last train "
+            f"loss {tr.train_metrics[-1]['aggregate_loss']:.4f}, eval "
+            f"{tr.eval_metrics[-1]['aggregate_loss']:.4f}; launches {d['launches']}; captured "
+            f"graphs {len(graphs)} (kernel 1 per replay {[g.launches for g in graphs]})")
+        checks.append((f"{name}: nccl group, finite metrics, kernel 1 launched",
+                       d["backend"] == "nccl" and tr.group is not None
+                       and all(np.isfinite(m["aggregate_loss"]) for m in metrics)
+                       and d["launches"]["fused_mel_power"] > 0))
+        res[f"{name}_launches"] = d["launches"]
+    checks.append(("dp_graph: the second epoch replayed a captured graph",
+                   "dp_graph" in dp and len(dp["dp_graph"]["trainer"]._graphs) == 1))
+    res["dp_launches"] = {c.__name__: sum(d["launches"][c.__name__] for d in dp.values())
+                          for c in counters}
+    del dp
+
+    for what, holds in checks:
+        log(f"[phase 12] {'ok  ' if holds else 'FAIL'} {what}")
+    bad = [what for what, holds in checks if not holds]
+    assert not bad, f"phase 12 checks failed: {bad}"
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2178,6 +2602,7 @@ def main() -> int:
         bf16 = phase_bf16_serving(dev, card)
         custom = phase_custom(dev, card, tmp)
         int8 = phase_int8(dev, card, tmp)
+        postures = phase_train_postures(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2188,7 +2613,10 @@ def main() -> int:
                     eval_launches=inference["eval_launches"][name],
                     bf16_launches=bf16["launches"].get(name, 0),
                     custom_launches=custom["launches"].get(name, 0),
-                    int8_launches=int8["launches"].get(name, 0))
+                    int8_launches=int8["launches"].get(name, 0),
+                    graph_launches=postures["graph_launches"][name],
+                    cache_launches=postures["cache_launches"][name],
+                    dp_launches=postures["dp_launches"][name])
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -2213,6 +2641,8 @@ def main() -> int:
                                                      if k != "launches"},
                     "custom": {k: v for k, v in custom.items() if k != "launches"}}))
     log(json.dumps({"int8": {k: v for k, v in int8.items() if k != "launches"}}))
+    log(json.dumps({"train_postures": {k: v for k, v in postures.items()
+                                       if not k.endswith("launches")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

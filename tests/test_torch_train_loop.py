@@ -347,14 +347,39 @@ def test_train_cli_end_to_end_on_the_cpu(tmp_path, dataset_root):
 
 @pytest.mark.parametrize("knob", ["steps_per_dispatch", "train_remat", "train_prng",
                                   "device_cache_dataset", "data_parallel"])
-def test_tpu_only_settings_raise(knob, tmp_path, dataset_root):
-    raw = _cli_raw(tmp_path, dataset_root)
+def test_tpu_only_settings_raise(knob, tmp_path, dataset_root, capsys):
+    """``train_prng`` (the TPU's hardware RNG) raises; the JAX package's other
+    training settings run one epoch through ``train_cli.run`` on the CPU:
+    ``steps_per_dispatch: 2`` (3 batches: one dispatch of 2 and one single
+    step), ``train_remat``, ``device_cache_dataset: on`` (both splits cached)
+    and ``--data_parallel`` without a ``torchrun`` environment (a world of one:
+    no process group, the pad policy, rank 0 writes)."""
+    raw = _cli_raw(tmp_path, dataset_root, epochs=1)
     value = {"steps_per_dispatch": 2, "train_remat": True, "train_prng": "rbg",
              "device_cache_dataset": "on"}.get(knob)
     if value is not None:
         raw["tpu_config"][knob] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.run(Config(raw), device="cpu", data_parallel=knob == "data_parallel")
+    if knob == "train_prng":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_cli.run(Config(raw), device="cpu")
+        return
+    trainer = train_cli.run(Config(raw), device="cpu", data_parallel=knob == "data_parallel")
+    out = capsys.readouterr().out
+    assert trainer.step == 3 and len(trainer.train_metrics) == len(trainer.eval_metrics) == 1
+    assert all(np.isfinite(m["aggregate_loss"]) for m in trainer.train_metrics + trainer.eval_metrics)
+    assert os.path.isfile(trainer.saved_model_path) and os.path.isfile(
+        trainer.resume_checkpoint_path)
+    cached = [line for line in out.splitlines() if line.startswith("[device-cache]")]
+    if knob == "steps_per_dispatch":
+        assert trainer.steps_per_dispatch == 2
+    elif knob == "train_remat":
+        assert trainer.remat
+    elif knob == "device_cache_dataset":
+        assert [c.split()[1] for c in cached] == ["train", "eval"], cached
+    else:
+        assert trainer.group is None and trainer.world == 1
+    if knob != "device_cache_dataset":  # 6 + 2 clips of 4 s at 8 kHz: auto caches both too
+        assert len(cached) == 2, cached
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
