@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..ops import cuda_graph
 from ..ops.nms import batched_interval_nms
 
 
@@ -102,6 +103,61 @@ def make_inference_fn(model, state_dict: Dict[str, torch.Tensor],
 
     infer.device = dev
     infer.model = model
+    return infer
+
+
+def make_multi_inference_fn(model, state_dict: Dict[str, torch.Tensor], n_batches: int,
+                            iou_threshold: float = 0.1, conf_threshold: float = 0.2,
+                            keep_k: int = 128, packed: bool = True,
+                            device: DeviceLike = None) -> Callable:
+    """Like :func:`make_inference_fn`, but one dispatch runs ``n_batches``
+    forward + decode passes: ``fn(sequence of N inputs) -> tuple of N
+    outputs``, each input a batch on the device as ``make_inference_fn``'s
+    function takes it.
+
+    On the card the N passes are one CUDA graph per (shape, dtype) of the
+    inputs, over static input buffers that each call fills with a
+    device-to-device copy; the first call of a signature runs its passes
+    eagerly on a side stream (warming every lazy allocation) and then
+    captures; the outputs are copied out of the graph's buffers, and each
+    replay advances the kernels' launch counters by the capture's launches
+    (``ops/cuda_graph.py``). A capture that fails raises. On the CPU the N
+    passes run one after another.
+    """
+    single = make_inference_fn(model, state_dict, iou_threshold, conf_threshold, keep_k=keep_k,
+                               packed=packed, device=device)
+    dev = single.device
+    graphs: Dict[tuple, tuple] = {}
+
+    def infer(audios):
+        if len(audios) != n_batches:
+            raise ValueError(
+                f"make_multi_inference_fn built for {n_batches} batches per "
+                f"dispatch, got {len(audios)}"
+            )
+        audios = [tuple(a) if isinstance(a, list) else a for a in audios]
+        if dev.type != "cuda":
+            return tuple(single(a) for a in audios)
+        key = cuda_graph.signature(audios)
+        entry = graphs.get(key)
+        if entry is None:
+            inputs = [cuda_graph.clone(a) for a in audios]
+            graph = torch.cuda.CUDAGraph()
+            outs, static, counts = cuda_graph.warm_then_capture(
+                dev, graph, lambda: tuple(single(a) for a in audios),
+                lambda: tuple(single(a) for a in inputs))
+            graphs[key] = (graph, inputs, static, counts)
+            return outs
+        graph, inputs, static, counts = entry
+        for buf, a in zip(inputs, audios):
+            cuda_graph.copy_into(buf, a)
+        graph.replay()
+        cuda_graph.count_replay(counts)
+        with torch.inference_mode():
+            return tuple(cuda_graph.clone(o) for o in static)
+
+    infer.device = dev
+    infer.graphs = graphs
     return infer
 
 

@@ -26,8 +26,10 @@ int16 bytes; native-rate files only), or with ``--framed_input`` under
 ``frontend_precision: int8`` the ``(q, scale)`` frames of
 ``frame_host_int8``.
 
-Not ported: ``--workers`` above 1 (the process pool, ROADMAP A11) raises
-``NotImplementedError``. ``--device`` defaults to the CUDA card.
+``--workers N`` (N > 1) streams through a pool of N worker processes, each
+with its own model and device context (``infer/pool.py``): one file sharded
+by chunk ranges, a directory by files; the CSVs are the single process's.
+``--device`` defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from .config import load_config
 from .data.wavio import read_wav, read_wav_info
 from .device import DeviceLike, resolve_device
 from .infer.decode import make_inference_fn
+from .infer.pool import StreamWorkerPool
 from .infer.runner import evaluate_dir
 from .infer.streaming import evaluate_audio
 from .models.detector import AudioDetectionModel
@@ -169,11 +172,30 @@ def build_frame_fn(cfg) -> Callable:
     return fe.frame_host_int8 if fe.fused_int8 else fe.frame_host
 
 
-def refuse_unported(workers: int = 1) -> None:
-    """``NotImplementedError`` for the flags whose posture is not ported."""
-    if workers > 1:
-        raise NotImplementedError("--workers > 1 (the streaming process pool) is not ported "
-                                  "yet (ROADMAP A11)")
+def build_worker(config, model_path: str, class_map_path: str, iou_threshold: float,
+                 conf_threshold: float, fold: bool = True, bf16: bool = False,
+                 ref_exact: bool = False, framed_input: bool = False,
+                 int8_calib_path: Optional[str] = None, transfer: str = "int16",
+                 device: DeviceLike = None):
+    """``(infer_fn, frame_fn)`` of a checkpoint: what one process of
+    ``main`` serves, and the factory the streaming pool's workers call
+    (``infer/pool.py``). ``frame_fn`` is ``--framed_input``'s host framer
+    or None; ``int8_calib_path`` the file ``--int8`` calibrates on."""
+    cfg = load_config(config)
+    idx2class = get_label_map(class_map_path)
+    frame_fn = build_frame_fn(cfg) if framed_input else None
+    if transfer == "int8" and frame_fn is not None and not SpectralFrontend(cfg).fused_int8:
+        raise ValueError("--transfer int8 with --framed_input requires "
+                         "tpu_config.frontend_precision: int8 (the quantizing framer)")
+    calib = (load_calib_batch([int8_calib_path], cfg, frame_fn=frame_fn)
+             if int8_calib_path else None)
+    # framed int8 tuples go to the model's own framed entry; the (q, scale)
+    # waveform entry is for the unframed int8 transfer only
+    infer_fn = build_inference(cfg, len(idx2class), model_path, iou_threshold, conf_threshold,
+                               fold=fold, ref_exact=ref_exact, device=device,
+                               dtype=torch.bfloat16 if bf16 else None, int8_calib=calib,
+                               int8_input=transfer == "int8" and frame_fn is None)
+    return infer_fn, frame_fn
 
 
 def first_input_path(audio_filepath: str, audio_dir: str, extension: str) -> str:
@@ -202,7 +224,8 @@ def main(argv=None) -> None:
     parser.add_argument("--output_dir", type=str, default="model_predictions", metavar="")
     parser.add_argument("--num_concurrency", type=int, default=10, metavar="")
     parser.add_argument("--workers", type=int, default=1, metavar="",
-                        help="not ported: above 1 raises NotImplementedError (ROADMAP A11)")
+                        help="streaming worker processes (infer/pool.py): a single file is "
+                             "sharded by chunk ranges, a directory by files")
     parser.add_argument("--iou_threshold", type=float, default=0.1, metavar="")
     parser.add_argument("--conf_threshold", type=float, default=0.2, metavar="")
     parser.add_argument("--no_fold", action="store_true",
@@ -224,8 +247,8 @@ def main(argv=None) -> None:
                              "--framed_input needs frontend_precision: int8)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    refuse_unported(args.workers)
-    device = resolve_device(args.device)
+    if args.workers <= 1:  # the pool's workers resolve their own device
+        resolve_device(args.device)
 
     cfg = load_config(args.config)
     tc = cfg.raw["train_config"]
@@ -235,21 +258,38 @@ def main(argv=None) -> None:
     if not os.path.isfile(class_map_path):
         raise FileNotFoundError(f"{class_map_path} does not exist")
     idx2class = get_label_map(class_map_path)
+    worker_kwargs = dict(config=args.config, model_path=model_path,
+                         class_map_path=class_map_path, iou_threshold=args.iou_threshold,
+                         conf_threshold=args.conf_threshold, fold=not args.no_fold,
+                         bf16=args.bf16, ref_exact=args.ref_exact,
+                         framed_input=args.framed_input,
+                         int8_calib_path=(first_input_path(args.audio_filepath, args.audio_dir,
+                                                           args.extension)
+                                          if args.int8 else None),
+                         transfer=args.transfer, device=args.device)
 
-    frame_fn = build_frame_fn(cfg) if args.framed_input else None
-    if args.transfer == "int8" and frame_fn is not None and not SpectralFrontend(cfg).fused_int8:
-        raise ValueError("--transfer int8 with --framed_input requires "
-                         "tpu_config.frontend_precision: int8 (the quantizing framer)")
-    calib = (load_calib_batch([first_input_path(args.audio_filepath, args.audio_dir,
-                                                args.extension)], cfg, frame_fn=frame_fn)
-             if args.int8 else None)
-    # framed int8 tuples go to the model's own framed entry; the (q, scale)
-    # waveform entry is for the unframed int8 transfer only
-    infer_fn = build_inference(cfg, len(idx2class), model_path, args.iou_threshold,
-                               args.conf_threshold, fold=not args.no_fold,
-                               ref_exact=args.ref_exact, device=device,
-                               dtype=torch.bfloat16 if args.bf16 else None, int8_calib=calib,
-                               int8_input=args.transfer == "int8" and frame_fn is None)
+    if args.workers > 1:
+        eval_kwargs = dict(input_sample_rate=cfg.sample_rate,
+                           sample_duration=cfg.sample_duration, batch_size=batch_size,
+                           idx2class_map=idx2class, transfer=args.transfer)
+        with StreamWorkerPool("audioyolo_tpu_torch.inference_cli:build_worker",
+                              worker_kwargs, args.workers, eval_kwargs) as pool:
+            pool.warmup()
+            if args.audio_filepath:
+                if not os.path.isfile(args.audio_filepath):
+                    raise FileNotFoundError(f"{args.audio_filepath} not found")
+                pool.evaluate_file(args.audio_filepath, args.output_dir)
+            else:
+                if not os.path.isdir(args.audio_dir):
+                    raise OSError(f"directory {args.audio_dir} not found")
+                ext = args.extension.replace(".", "")
+                paths = sorted(os.path.join(args.audio_dir, f)
+                               for f in os.listdir(args.audio_dir) if f.endswith(f".{ext}"))
+                pool.evaluate_dir(paths, args.output_dir)
+        return
+
+    # the construction and checks the pool's workers run
+    infer_fn, frame_fn = build_worker(**worker_kwargs)
     kwargs = dict(input_sample_rate=cfg.sample_rate, sample_duration=cfg.sample_duration,
                   batch_size=batch_size, idx2class_map=idx2class, frame_fn=frame_fn,
                   transfer=args.transfer)

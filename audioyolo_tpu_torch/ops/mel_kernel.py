@@ -11,8 +11,9 @@ PyTorch version beside it:
 
 The constants are K-major: ``ct`` = C_r^T (R, Np, Fp) and ``mel2t`` =
 [M; M]^T (32, Np), bf16, zero-padded. ``fused_mel_power`` runs both passes
-(the kernels for a CUDA tensor, the plain versions only for a CPU tensor);
-``fused_mel_power.launches`` counts its calls that launched the kernels.
+(the kernels for a CUDA tensor, the plain versions only for a CPU tensor),
+each pass a registered torch op; ``fused_mel_power.launches`` counts the
+main pass's launches, one per run of kernel 1.
 """
 
 from __future__ import annotations
@@ -97,11 +98,28 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def stage_frames(framed: torch.Tensor, fp: int) -> torch.Tensor:
-    """The staging pass: the kernel for a CUDA tensor, the plain version for
-    a CPU tensor. Arguments as in :func:`stage_frames_plain`."""
-    if not framed.is_cuda:
-        return stage_frames_plain(framed, fp)
+# Both passes are registered torch ops (``torch.ops.audioyolo_tpu_torch.*``):
+# ``torch.export`` keeps each as one node of its graph (its fake registration
+# gives the output's shape and type), a CUDA graph captures its launch, and
+# the dispatcher sends a CPU tensor to the plain version, a CUDA tensor to the
+# kernel, which launches or raises. ``chip_smoke.py`` calls the ``*_cuda``
+# registrations directly to time what the dispatcher adds to a call.
+
+
+@torch.library.custom_op("audioyolo_tpu_torch::stage_frames", mutates_args=(),
+                         device_types="cpu")
+def _stage_frames_op(framed: torch.Tensor, fp: int) -> torch.Tensor:
+    return stage_frames_plain(framed, fp)
+
+
+@_stage_frames_op.register_fake
+def _(framed, fp):
+    b, r, g, _ = framed.shape
+    return framed.new_empty((r, b * g, fp), dtype=torch.bfloat16)
+
+
+@_stage_frames_op.register_kernel("cuda")
+def _stage_frames_cuda(framed, fp):
     _check_frames(framed, fp)
     b, r, g, f = framed.shape
     xs = torch.empty((r, b * g, fp), device=framed.device, dtype=torch.bfloat16)
@@ -117,13 +135,20 @@ def stage_frames(framed: torch.Tensor, fp: int) -> torch.Tensor:
     return xs
 
 
-def mel_power_staged(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
-                     b: int, g: int) -> torch.Tensor:
-    """The main pass (TMA + wgmma) on the staging pass's output: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor. Arguments as in
-    :func:`mel_power_staged_plain`."""
-    if not xs.is_cuda:
-        return mel_power_staged_plain(xs, ct, mel2t, b, g)
+@torch.library.custom_op("audioyolo_tpu_torch::mel_power_staged", mutates_args=(),
+                         device_types="cpu")
+def _mel_power_staged_op(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
+                         b: int, g: int) -> torch.Tensor:
+    return mel_power_staged_plain(xs, ct, mel2t, b, g)
+
+
+@_mel_power_staged_op.register_fake
+def _(xs, ct, mel2t, b, g):
+    return xs.new_empty((b, ct.shape[0], g, mel2t.shape[0]), dtype=torch.float32)
+
+
+@_mel_power_staged_op.register_kernel("cuda")
+def _mel_power_staged_cuda(xs, ct, mel2t, b, g):
     r = ct.shape[0] if ct.dim() == 3 else -1
     _check_constants(ct, mel2t, r, xs.device)
     np_, fp = ct.shape[1], ct.shape[2]
@@ -139,27 +164,37 @@ def mel_power_staged(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
         err = fn(xs.data_ptr(), ct.data_ptr(), mel2t.data_ptr(), out.data_ptr(),
                  b, r, g, fp, np_, _stream(xs))
     build.check_launch(err, "mel_power_staged")
+    fused_mel_power.launches += 1
     return out
+
+
+def stage_frames(framed: torch.Tensor, fp: int) -> torch.Tensor:
+    """The staging pass: the kernel for a CUDA tensor, the plain version for
+    a CPU tensor. Arguments as in :func:`stage_frames_plain`."""
+    return _stage_frames_op(framed, fp)
+
+
+def mel_power_staged(xs: torch.Tensor, ct: torch.Tensor, mel2t: torch.Tensor,
+                     b: int, g: int) -> torch.Tensor:
+    """The main pass (TMA + wgmma) on the staging pass's output: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor. Arguments as in
+    :func:`mel_power_staged_plain`. Each launch of the kernel ends a run of
+    kernel 1 and counts one in ``fused_mel_power.launches``."""
+    return _mel_power_staged_op(xs, ct, mel2t, b, g)
 
 
 def fused_mel_power(framed: torch.Tensor, ct: torch.Tensor,
                     mel2t: torch.Tensor) -> torch.Tensor:
     """(B, R, G, F) frames -> (B, R, G, 32) mel power in phase order.
 
-    CUDA tensors launch the two kernels (or raise) and count one launch;
-    CPU tensors take the plain version. Arguments as in
-    :func:`fused_mel_power_plain`.
+    The two passes' ops: CUDA tensors launch the two kernels (or raise) and
+    count one launch; CPU tensors take the plain versions, which compose
+    :func:`fused_mel_power_plain`, whose arguments these are.
     """
-    if not framed.is_cuda:
-        return fused_mel_power_plain(framed, ct, mel2t)
     if framed.dim() != 4:
         raise ValueError(f"framed must be (B, R, G, F), got {tuple(framed.shape)}")
-    b, r, g, _ = framed.shape
-    _check_constants(ct, mel2t, r, framed.device)
-    out = mel_power_staged(stage_frames(framed, ct.shape[-1]), ct, mel2t, b, g)
-    if out.numel():
-        fused_mel_power.launches += 1
-    return out
+    b, _, g, _ = framed.shape
+    return mel_power_staged(stage_frames(framed, ct.shape[-1]), ct, mel2t, b, g)
 
 
 fused_mel_power.launches = 0

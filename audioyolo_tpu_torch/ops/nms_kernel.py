@@ -12,8 +12,9 @@ plain version beside them is the row-by-row algorithm of
 keep flags. The kernels take K up to ``K_MAX`` proposals per clip.
 
 The Pallas kernels took a ``valid`` mask, all true on the serving path; these
-start every proposal alive. Each wrapper counts its launches in
-``<wrapper>.launches``.
+start every proposal alive. Both instances are one registered torch op
+(``torch.ops.audioyolo_tpu_torch.greedy_suppress``); each wrapper counts its
+kernel's launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -142,20 +143,42 @@ def _launch(x1s: torch.Tensor, x2s: torch.Tensor, iou_threshold: float,
     return keep
 
 
+# One registered torch op for both instances (``torch.export`` keeps it as one
+# node instead of unrolling the plain version's loop over K rows; a CUDA graph
+# captures its launch): the plain version for a CPU tensor, the kernel of
+# ``block`` rows per step for a CUDA tensor, which launches or raises.
+# ``chip_smoke.py`` calls ``_greedy_suppress_cuda`` directly to time what the
+# dispatcher adds to a call.
+@torch.library.custom_op("audioyolo_tpu_torch::greedy_suppress", mutates_args=(),
+                         device_types="cpu")
+def _greedy_suppress_op(x1s: torch.Tensor, x2s: torch.Tensor, iou_threshold: float,
+                        block: int) -> torch.Tensor:
+    return greedy_suppress_rows(x1s, x2s, iou_threshold)
+
+
+@_greedy_suppress_op.register_fake
+def _(x1s, x2s, iou_threshold, block):
+    return torch.empty_like(x1s, dtype=torch.bool)
+
+
+@_greedy_suppress_op.register_kernel("cuda")
+def _greedy_suppress_cuda(x1s, x2s, iou_threshold, block):
+    wrapper = {1: greedy_suppress_unblocked, 32: greedy_suppress_blocked}.get(block)
+    if wrapper is None:
+        raise ValueError(f"greedy_suppress has instances of block 1 and 32, not {block}")
+    return _launch(x1s, x2s, iou_threshold, wrapper)
+
+
 def greedy_suppress_blocked(x1s: torch.Tensor, x2s: torch.Tensor,
                             iou_threshold: float) -> torch.Tensor:
     """Kernel 2 (chunks of 32 rows) on CUDA tensors; the plain version on CPU."""
-    if not x1s.is_cuda:
-        return greedy_suppress_rows(x1s, x2s, iou_threshold)
-    return _launch(x1s, x2s, iou_threshold, greedy_suppress_blocked)
+    return _greedy_suppress_op(x1s, x2s, float(iou_threshold), greedy_suppress_blocked.block)
 
 
 def greedy_suppress_unblocked(x1s: torch.Tensor, x2s: torch.Tensor,
                               iou_threshold: float) -> torch.Tensor:
     """Kernel 3 (one row per step) on CUDA tensors; the plain version on CPU."""
-    if not x1s.is_cuda:
-        return greedy_suppress_rows(x1s, x2s, iou_threshold)
-    return _launch(x1s, x2s, iou_threshold, greedy_suppress_unblocked)
+    return _greedy_suppress_op(x1s, x2s, float(iou_threshold), greedy_suppress_unblocked.block)
 
 
 greedy_suppress_blocked.block, greedy_suppress_blocked.launches = 32, 0

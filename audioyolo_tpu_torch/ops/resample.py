@@ -64,8 +64,9 @@ class Resampler(nn.Module):
         kernel, width = sinc_resample_kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
         self.width = width
         kkp = torch.from_numpy(np.ascontiguousarray(kernel.T))  # (K, P)
-        self.register_buffer("kernel_a", kkp[: self.q].contiguous(), persistent=False)
-        self.register_buffer("kernel_b", kkp[self.q:].contiguous(), persistent=False)
+        # own storages, not views of kkp: torch.export saves each constant whole
+        self.register_buffer("kernel_a", kkp[: self.q].clone(), persistent=False)
+        self.register_buffer("kernel_b", kkp[self.q:].clone(), persistent=False)
         # (out_ch=P, in_ch=1, taps) for the strided-conv form (2*width > q)
         self.register_buffer("kernel", torch.from_numpy(kernel)[:, None, :], persistent=False)
 

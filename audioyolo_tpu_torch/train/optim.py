@@ -65,8 +65,9 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], optimizer_cfg: Dict[str
                    use_lr_scheduler: bool = True,
                    capturable: bool = False) -> torch.optim.Optimizer:
     """``capturable=True``: the optimizer's form that a CUDA graph can
-    capture (its step counters on the device); an optimizer without one
-    raises ``NotImplementedError``."""
+    capture (its state and step counters on the device): torch's own
+    ``capturable`` form, or for SGD and Adagrad, which have none,
+    :class:`CapturableSGD` and :class:`CapturableAdagrad`."""
     cfg = dict(optimizer_cfg)
     name = cfg.pop("name", "Adam")
     lr = float(cfg.pop("lr", 1e-3))
@@ -90,13 +91,94 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], optimizer_cfg: Dict[str
     else:
         kw["weight_decay"] = wd
     if capturable:
-        if name in ("SGD", "Adagrad"):
-            raise NotImplementedError(
-                f"steps_per_dispatch > 1 captures the step in a CUDA graph, and torch.optim."
-                f"{name} has no capturable form (ROADMAP A13); use another optimizer or "
-                "steps_per_dispatch: 1")
+        if name in _CAPTURABLE:
+            return _CAPTURABLE[name](params, lr=lr, **kw)
         kw["capturable"] = True
     return getattr(torch.optim, name)(params, lr=lr, **kw)
+
+
+class _Capturable(torch.optim.Optimizer):
+    """An update a CUDA graph can capture: its state lives on the parameters'
+    device, made at the first step (an eager one: the trainer's first
+    dispatch runs its steps before it captures), the learning rate is a
+    float or a device tensor (``set_learning_rate`` fills it in place), and
+    ``step`` reads nothing back to the host."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError(f"{type(self).__name__} takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                self._update(group, params, [p.grad for p in params])
+
+
+class CapturableSGD(_Capturable):
+    """``torch.optim.SGD`` (dampening 0) as a capturable update: L2 added to
+    the gradient, then ``buf = momentum * buf + g`` and ``g + momentum *
+    buf`` (nesterov) or ``buf``, as torch and the JAX package's
+    ``optax.trace`` read it. The momentum buffer starts at zeros, so the
+    first step's buffer is the gradient, as torch's clone of it."""
+
+    def __init__(self, params, lr: float = 1e-3, momentum: float = 0.0,
+                 nesterov: bool = False, weight_decay: float = 0.0):
+        if nesterov and momentum <= 0:
+            raise ValueError("nesterov momentum requires a momentum > 0")
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov,
+                                      weight_decay=weight_decay))
+
+    def _update(self, group, params, grads):
+        wd, momentum = group["weight_decay"], group["momentum"]
+        if wd:
+            grads = torch._foreach_add(grads, params, alpha=wd)
+        if momentum:
+            bufs = []
+            for p in params:
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                bufs.append(state["momentum_buffer"])
+            torch._foreach_mul_(bufs, momentum)
+            torch._foreach_add_(bufs, grads)
+            grads = torch._foreach_add(grads, bufs, alpha=momentum) if group["nesterov"] else bufs
+        lr = group["lr"]
+        if torch.is_tensor(lr):  # torch.optim.SGD's forms for a tensor and a float
+            torch._foreach_add_(params, torch._foreach_mul(grads, -lr))
+        else:
+            torch._foreach_add_(params, grads, alpha=-lr)
+
+
+class CapturableAdagrad(_Capturable):
+    """``torch.optim.Adagrad`` (no learning-rate decay) as a capturable
+    update: L2 added to the gradient, ``sum += g * g``, ``p -= lr * g /
+    (sqrt(sum) + eps)``; the sums start at ``initial_accumulator_value`` and
+    the step count is a device tensor, as in torch's state."""
+
+    def __init__(self, params, lr: float = 1e-2, eps: float = 1e-10,
+                 initial_accumulator_value: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, eps=eps, weight_decay=weight_decay,
+                                      initial_accumulator_value=initial_accumulator_value))
+
+    def _update(self, group, params, grads):
+        sums, steps = [], []
+        for p in params:
+            state = self.state[p]
+            if "sum" not in state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["sum"] = torch.full_like(p, group["initial_accumulator_value"])
+            sums.append(state["sum"])
+            steps.append(state["step"])
+        torch._foreach_add_(steps, 1)
+        if group["weight_decay"]:
+            grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+        torch._foreach_addcmul_(sums, grads, grads, value=1)
+        std = torch._foreach_sqrt(sums)
+        torch._foreach_add_(std, group["eps"])
+        torch._foreach_addcdiv_(params, torch._foreach_mul(grads, -group["lr"]), std)
+
+
+_CAPTURABLE = {"SGD": CapturableSGD, "Adagrad": CapturableAdagrad}
 
 
 def make_lr_scheduler(optimizer: torch.optim.Optimizer,

@@ -28,10 +28,10 @@ The JAX package's step settings:
   place), the EMA counts on the device, and step ``i`` of the graph draws
   its dropout mask from its own generator, registered with the graph and
   seeded with ``(seed, n + i)`` before each replay: the masks of the eager
-  steps. Kernel 1's launch counter is advanced by each replay by the number
-  of launches the capture recorded. ``load_checkpoint`` drops the graphs
-  (the optimizer's state tensors are new). On the CPU the S steps run
-  eagerly.
+  steps. The kernels' launch counters are advanced by each replay by the
+  number of launches the capture recorded (``ops/cuda_graph.py``).
+  ``load_checkpoint`` drops the graphs (the optimizer's state tensors are
+  new). On the CPU the S steps run eagerly.
 - ``remat``: the train-mode forward runs its blocks (each ResNet or custom
   backbone block, RepVGG block and conv + BatchNorm + activation unit of the
   neck) under ``torch.utils.checkpoint`` with a selective policy that saves
@@ -75,7 +75,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DeviceLike, resolve_device
 from ..models.backbone import BasicBlock, Bottleneck, ExtractorLayer, ShardedRng
 from ..models.layers import BatchNorm, ConvNorm, RepVGGBlock
-from ..ops.mel_kernel import fused_mel_power
+from ..ops.cuda_graph import clone, copy_into, count_replay, signature, warm_then_capture
 from ..parallel.dist import all_reduce_grads, gather_rows
 from .ema import EMA
 from .loss import METRIC_KEYS, AudioDetectionLoss
@@ -145,31 +145,17 @@ def _running_stats_kept(norms: Sequence[BatchNorm], inner):
 
 class _StepGraph:
     """S captured train steps: static input buffers, one registered
-    generator per step, the (S, 10) metric output and kernel 1's launches
-    per replay."""
+    generator per step, the (S, 10) metric output and each kernel's launches
+    per replay (in ``ops/cuda_graph.py::COUNTERS``'s order)."""
 
-    def __init__(self, graph, inputs, generators, out, launches):
+    def __init__(self, graph, inputs, generators, out, counts):
         self.graph, self.inputs, self.generators = graph, inputs, generators
-        self.out, self.launches = out, launches
-
-
-def _copy_into(dst, src) -> None:
-    if isinstance(dst, tuple):
-        for d, s_ in zip(dst, src):
-            d.copy_(s_, non_blocking=True)
-    else:
-        dst.copy_(src, non_blocking=True)
-
-
-def _clone(x):
-    return tuple(t.clone() for t in x) if isinstance(x, tuple) else x.clone()
+        self.out, self.counts = out, counts
 
 
 def _shape_key(batches) -> Tuple:
-    def sig(x):
-        return tuple(sig(a) for a in x) if isinstance(x, tuple) else (tuple(x.shape), x.dtype)
-
-    return tuple((sig(a), tuple(sorted((k, sig(v)) for k, v in t.items()))) for a, t in batches)
+    return tuple((signature(a), tuple(sorted((k, signature(v)) for k, v in t.items())))
+                 for a, t in batches)
 
 
 class TrainerPipeline:
@@ -277,37 +263,30 @@ class TrainerPipeline:
         key = _shape_key(batches)
         graph = self._graphs.get(key)
         if graph is None:
-            current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                metrics = torch.stack([self.train_step(a, t) for a, t in batches])
-            current.wait_stream(side)
-            self._graphs[key] = self._capture(batches)
+            metrics, self._graphs[key] = self._capture(batches)
             return metrics
         for (a, t), (sa, st) in zip(batches, graph.inputs):
-            _copy_into(sa, a)
+            copy_into(sa, a)
             for k in st:
                 st[k].copy_(t[k], non_blocking=True)
         for i, g in enumerate(graph.generators):
             self._seed(g, self.step + i)
         graph.graph.replay()
-        fused_mel_power.launches += graph.launches
+        count_replay(graph.counts)
         self.step += len(batches)
         return graph.out.clone()
 
-    def _capture(self, batches) -> _StepGraph:
-        inputs = [(_clone(a), {k: v.clone() for k, v in t.items()}) for a, t in batches]
+    def _capture(self, batches) -> Tuple[torch.Tensor, _StepGraph]:
+        """The S steps eagerly (their metrics), then captured."""
+        inputs = [(clone(a), clone(t)) for a, t in batches]
         generators = [torch.Generator(device=self.device) for _ in batches]
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        before = fused_mel_power.launches
-        with torch.cuda.graph(graph):
-            out = torch.stack([self._step(a, t, g) for (a, t), g in zip(inputs, generators)])
-        launches = fused_mel_power.launches - before
-        fused_mel_power.launches = before  # a capture launches nothing
-        return _StepGraph(graph, inputs, generators, out, launches)
+        metrics, out, counts = warm_then_capture(
+            self.device, graph, lambda: torch.stack([self.train_step(a, t) for a, t in batches]),
+            lambda: torch.stack([self._step(a, t, g) for (a, t), g in zip(inputs, generators)]))
+        return metrics, _StepGraph(graph, inputs, generators, out, counts)
 
     @torch.no_grad()
     def eval_step(self, audio: torch.Tensor, targets: Dict[str, torch.Tensor]) -> torch.Tensor:

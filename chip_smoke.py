@@ -103,7 +103,23 @@ Phases, each of which raises on failure:
     a profiler trace, kernel 1's launches per replayed step);
     ``train_cli.run(data_parallel=True)`` in a one-rank nccl group, then with
     ``steps_per_dispatch: 4`` over two epochs (the second replays);
-13. print one JSON line of every kernel's numbers (with each path's
+13. the last modules of the JAX package: the serving artifact
+    (``infer/export.py``) at B=32 in four entries (framed int16, the int16
+    waveform, the bf16 body, the int8 body on the framed ``(q, scale)``
+    entry), each exported, saved, loaded on the card and held to the live
+    ``make_inference_fn`` (rows, the launches of one call, forward + NMS in
+    turns), and its CPU program at B=2 to the card; a fresh process with an
+    empty build directory loads and runs an artifact (the kernels built at
+    the first op call, no module of ``models/`` imported);
+    ``make_multi_inference_fn`` over 4 batches as one CUDA graph, float32
+    and bf16 (the replay against 4 eager calls under deterministic cuDNN,
+    the time per batch in turns, the busy share); ``inference_cli.main
+    --workers 2`` over phase 7's directory and 150 s file against
+    ``--workers 1`` (CSVs byte for byte, wall times, ``detect_regime``, the
+    workers' launches from their ``ping``); SGD (nesterov) and Adagrad at
+    ``steps_per_dispatch: 4`` against eager steps of their capturable form,
+    and their graph step time against Adam's in turns;
+14. print one JSON line of every kernel's numbers (with each path's
     launches), then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -2210,11 +2226,11 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _busy_share(fn):
-    """The device's busy share over one call of ``fn`` (synchronised), from
-    a profiler trace: the union of the device events' intervals over the
-    window's span on the host; their count; and the kernel-1 events (staging
-    + main pass) among them."""
+def _host_device(fn):
+    """One synchronised call of ``fn`` under ``torch.profiler``: the
+    window's host ms, the device's busy ms in it (the union of its kernels),
+    the kernels' count and kernel 1's (staging + main pass) among them, and
+    the host ops with the most self time (name, count, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2237,7 +2253,20 @@ def _busy_share(fn):
             busy += b - max(a, end)
             end = b
     k1 = sum(1 for e in kernels if "mel_power" in e.name or "stage_frames" in e.name)
-    return busy / max(window.end - window.start, 1e-9), len(kernels), k1
+    host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None) != DeviceType.CUDA
+                   and ev.key not in ("ayt_window", "cudaDeviceSynchronize")), reverse=True)
+    return dict(host_ms=(window.end - window.start) / 1e3, device_busy_ms=busy / 1e3,
+                kernels=len(kernels), kernel1_events=k1, top_host_ops=[(k, n, round(ms, 3)) for ms, n, k in host[:5]])
+
+
+def _busy_share(fn):
+    """The device's busy share over one call of ``fn`` (synchronised), from
+    a profiler trace (``_host_device``): its kernels' union over the
+    window's span on the host; their count; and the kernel-1 events
+    (staging + main pass) among them."""
+    r = _host_device(fn)
+    return r["device_busy_ms"] / max(r["host_ms"], 1e-12), r["kernels"], r["kernel1_events"]
 
 
 def _param_readings(run, ref, start):
@@ -2448,7 +2477,7 @@ def phase_train_postures(dev, card, train_tmp):
         graph_launches += launches()["fused_mel_power"]
         run_launches = launches()["fused_mel_power"]
         graphs = list(graph._graphs.values())
-        per_replay_step = graphs[0].launches / DISPATCH if len(graphs) == 1 else float("nan")
+        per_replay_step = graphs[0].counts[0] / DISPATCH if len(graphs) == 1 else float("nan")
         runs["graph"] = (rows_graph, state(graph))
 
         def readings(a, b):
@@ -2552,7 +2581,7 @@ def phase_train_postures(dev, card, train_tmp):
             f"{len(tr.train_metrics)} epoch(s), {tr.step} steps in {d['s']:.1f} s, last train "
             f"loss {tr.train_metrics[-1]['aggregate_loss']:.4f}, eval "
             f"{tr.eval_metrics[-1]['aggregate_loss']:.4f}; launches {d['launches']}; captured "
-            f"graphs {len(graphs)} (kernel 1 per replay {[g.launches for g in graphs]})")
+            f"graphs {len(graphs)} (kernel 1 per replay {[g.counts[0] for g in graphs]})")
         checks.append((f"{name}: nccl group, finite metrics, kernel 1 launched",
                        d["backend"] == "nccl" and tr.group is not None
                        and all(np.isfinite(m["aggregate_loss"]) for m in metrics)
@@ -2569,6 +2598,602 @@ def phase_train_postures(dev, card, train_tmp):
     bad = [what for what, holds in checks if not holds]
     assert not bad, f"phase 12 checks failed: {bad}"
     return res
+
+
+MULTI_N = 4
+# the exported program against the live function on the card: the rows of
+# each clip matched as phase 7 matches card and CPU; a difference must be a
+# flip within the entry's tolerance (the same ops on the same inputs: none
+# expected)
+EXPORT_FLIP_TOL = {"framed_int16": 1e-3, "wave_int16": 1e-3, "bf16_framed_int16": BF16_FLIP_TOL,
+                   "int8_body_framed_q": INT8_FLIP_TOL}
+EXPORT_UNEXPLAINED = {"framed_int16": 0.0, "wave_int16": 0.0,
+                      "bf16_framed_int16": BF16_UNEXPLAINED_SHARE,
+                      "int8_body_framed_q": INT8_UNEXPLAINED_SHARE}
+OPTIMIZERS_13 = {"SGD": {"name": "SGD", "lr": 1e-3, "momentum": 0.9, "nesterov": True},
+                 "Adagrad": {"name": "Adagrad", "lr": 1e-3}}
+
+
+def _dets_rows(dets, duration):
+    """Per clip, the rows ``evaluate_audio`` would write from a detection dict."""
+    from audioyolo_tpu_torch.infer.decode import postprocess_detections
+
+    return [[dict(confidence=r[0], class_idx=r[2], start=r[3], end=r[4]) for r in clip]
+            for clip in postprocess_detections(dets, duration)]
+
+
+def _rows_against(got, ref, conf_thr, iou_thr, flip_tol):
+    """(matched, explained, unexplained) summed over the clips."""
+    m = e = 0
+    bad = []
+    for a, b in zip(got, ref, strict=True):
+        mi, ei, ui, _, _ = _compare_rows(a, b, conf_thr, iou_thr, tol=1e-3, flip_tol=flip_tol,
+                                         cascade=True)
+        m, e, bad = m + mi, e + ei, bad + ui
+    return m, e, bad
+
+
+def _fresh_process_load(path):
+    """Start a new interpreter with an empty build directory that loads the
+    artifact and runs it once: its first op call builds the kernels'
+    libraries, and no module of ``models/`` is imported. Returns a function
+    that waits for it: ``(its JSON reading or None, seconds)``."""
+    code = (
+        "import json, os, sys, tempfile\n"
+        "import numpy as np\n"
+        "from audioyolo_tpu_torch.ops import build\n"
+        "build.BUILD = tempfile.mkdtemp(prefix='ayt_build_')\n"
+        "from audioyolo_tpu_torch.infer.export import load_serving_artifact\n"
+        "from audioyolo_tpu_torch.ops.cuda_graph import COUNTERS\n"
+        f"fn, meta = load_serving_artifact({path!r})\n"
+        "dets = fn(np.zeros(meta['input_shape'], meta['input_dtype']))\n"
+        "print(json.dumps(dict(built=sorted(os.listdir(build.BUILD)),\n"
+        "    launches={c.__name__: c.launches for c in COUNTERS},\n"
+        "    models=[m for m in sys.modules if m.startswith('audioyolo_tpu_torch.models')],\n"
+        "    shape=list(dets['valid'].shape))))\n"
+        "import shutil; shutil.rmtree(build.BUILD)\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(f"[export] the fresh process failed (exit {proc.returncode}):\n{out}\n{err}")
+            return None, s
+        return json.loads(out.strip().splitlines()[-1]), s
+
+    return wait
+
+
+def _aten_ops(fn):
+    """The ATen ops one call of ``fn`` dispatches, counted by name (host side)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return seen
+
+
+def _dispatch_cost(dev, card):
+    """What the torch dispatcher adds to a kernel op's call: each wrapper
+    (through its registered op) against the op's ``cuda`` registration
+    called directly, at the serving forward's shapes (framed int16, B=32,
+    K=630), in turns. Per call: CUDA-event ms over 200 calls queued back to
+    back, and the host's us to queue one."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.ops import mel_kernel, nms_kernel
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+
+    cfg = _serving_config()
+    fe = SpectralFrontend(cfg).to(dev)
+    mk = fe.fused_kernel
+    wav = np.clip(np.random.default_rng(21).standard_normal((BATCH, cfg.clip_samples)) * 3000,
+                  -32768, 32767).astype(np.int16)
+    x = torch.from_numpy(fe.frame_host(wav)).to(dev)
+    b, _, g, _ = x.shape
+    fp = mk.ct_i16.shape[-1]
+    xs = mel_kernel.stage_frames(x, fp)
+    x1n, x2n = _nms_cases(BATCH, 630, seed=21)["random"]
+    x1, x2 = torch.from_numpy(x1n).to(dev), torch.from_numpy(x2n).to(dev)
+    calls = {
+        "stage_frames": (lambda: mel_kernel.stage_frames(x, fp),
+                         lambda: mel_kernel._stage_frames_cuda(x, fp)),
+        "mel_power_staged": (lambda: mel_kernel.mel_power_staged(xs, mk.ct_i16, mk.mel2t, b, g),
+                             lambda: mel_kernel._mel_power_staged_cuda(xs, mk.ct_i16, mk.mel2t,
+                                                                       b, g)),
+        "greedy_suppress": (lambda: nms_kernel.greedy_suppress_blocked(x1, x2, 0.1),
+                            lambda: nms_kernel._greedy_suppress_cuda(x1, x2, 0.1, 32)),
+    }
+
+    def host_us(fn, n=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    res = {}
+    for name, (op, direct) in calls.items():
+        turns = {"op": [], "direct": []}
+        for which in ("op", "direct", "direct", "op"):
+            fn = op if which == "op" else direct
+            turns[which].append((time_ms(fn, iters=200, warmup=5), host_us(fn)))
+        res[name] = {k: dict(ms=[t[0] for t in v], host_us=[t[1] for t in v])
+                     for k, v in turns.items()}
+        log(f"[dispatch {name}] per call in turns, through the registered op: "
+            + ", ".join(f"{m:.4f} ms ({h:.1f} us host)" for m, h in turns["op"])
+            + "; its cuda registration called directly: "
+            + ", ".join(f"{m:.4f} ms ({h:.1f} us host)" for m, h in turns["direct"])
+            + f" [{card}]")
+    return res
+
+
+def phase_port_rest(dev, card, train_tmp, postures):
+    """Phase 13: the serving artifact (export, save, load) in four entries,
+    ``make_multi_inference_fn`` as one CUDA graph over 4 forwards,
+    ``inference_cli --workers 2`` (the streaming pool) and SGD and Adagrad
+    under ``steps_per_dispatch: 4``, each path's kernel launches counted."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import inference_cli, train_cli
+    from audioyolo_tpu_torch.config import Config
+    from audioyolo_tpu_torch.data.loader import BatchLoader, DeviceCachedLoader
+    from audioyolo_tpu_torch.infer import pool as pool_mod
+    from audioyolo_tpu_torch.infer.decode import (make_inference_fn, make_multi_inference_fn,
+                                                  unpack_detections)
+    from audioyolo_tpu_torch.infer.export import (build_serving_exported,
+                                                  load_serving_artifact, save_serving_artifact)
+    from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg
+    from audioyolo_tpu_torch.models.quant import calibrate_quant, set_quant
+    from audioyolo_tpu_torch.ops.cuda_graph import COUNTERS
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend
+    from audioyolo_tpu_torch.train import TrainerPipeline
+
+    checks, res = [], {}
+    conf_thr, iou_thr, keep_k = 0.2, 0.1, 128
+    t_phase = time.perf_counter()
+
+    def zero():
+        for c in COUNTERS:
+            c.launches = 0
+
+    def launches():
+        return {c.__name__: c.launches for c in COUNTERS}
+
+    def kernels_ran(counts):
+        return counts["fused_mel_power"] > 0 and counts["greedy_suppress_blocked"] > 0
+
+    res["dispatch"] = _dispatch_cost(dev, card)
+
+    # (a) the serving artifact: four entries at B=32, full width; the cpu
+    # platform's program for the first entry only (the CPU tests hold all four)
+    cfg = _serving_config()
+    raw8 = cfg.to_dict()
+    raw8["tpu_config"]["frontend_precision"] = "int8"
+    cfg8 = Config(raw8)
+    gen = torch.Generator().manual_seed(0)
+    sd = _randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen).state_dict(), gen)
+    folded = fold_repvgg(sd)
+    fe, fe8 = SpectralFrontend(cfg), SpectralFrontend(cfg8)
+    rng = np.random.default_rng(13)
+    wav = [np.clip(rng.standard_normal((BATCH, cfg.clip_samples)) * 3000, -32768,
+                   32767).astype(np.int16) for _ in range(MULTI_N)]
+    framed = fe.frame_host(wav[0])
+    q8 = fe8.frame_host_int8(wav[0])
+    entries = {
+        "framed_int16": (cfg, None, framed, dict(input_dtype="int16", framed=True)),
+        "wave_int16": (cfg, None, wav[0][:, None, :], dict(input_dtype="int16")),
+        "bf16_framed_int16": (cfg, torch.bfloat16, framed, dict(input_dtype="int16", framed=True)),
+        "int8_body_framed_q": (cfg8, None, q8, dict(input_dtype="int8", framed=True)),
+    }
+    tmp = os.path.join(train_tmp, "export")
+    os.makedirs(tmp)
+    export_counts = {c.__name__: 0 for c in COUNTERS}
+    res["export"] = {}
+    for name, (ecfg, dtype, x, kw) in entries.items():
+        parts = x if isinstance(x, tuple) else (x,)
+        if kw.get("framed"):
+            kw = dict(kw, frame_shape=tuple(parts[0].shape[1:]))
+        model = AudioDetectionModel.from_config(ecfg, 2, deploy=True, dtype=dtype)
+        if name.startswith("int8_body"):
+            model.load_state_dict(folded)
+            model.to(dev).eval()
+            calib = tuple(torch.from_numpy(p[:4]).to(dev) for p in parts)
+            set_quant(model, calibrate_quant(model, [calib]))
+        with_cpu = name == "framed_int16"
+        t0 = time.perf_counter()
+        programs = build_serving_exported(model, folded, BATCH, conf_threshold=conf_thr,
+                                          iou_threshold=iou_thr, keep_k=keep_k,
+                                          platforms=("cuda",), **kw)
+        export_s = time.perf_counter() - t0
+        path, path_cpu = os.path.join(tmp, f"{name}.aytx"), os.path.join(tmp, f"{name}_cpu.aytx")
+        t0 = time.perf_counter()
+        save_serving_artifact(path, programs, idx2class_map={0: "alarm", 1: "music"},
+                              sample_duration=ecfg.sample_duration,
+                              input_sample_rate=ecfg.sample_rate)
+        save_s = time.perf_counter() - t0
+        if with_cpu:
+            save_serving_artifact(path_cpu, build_serving_exported(
+                model, folded, 2, conf_threshold=conf_thr, iou_threshold=iou_thr,
+                keep_k=keep_k, platforms=("cpu",), **kw), idx2class_map={0: "alarm", 1: "music"},
+                sample_duration=ecfg.sample_duration, input_sample_rate=ecfg.sample_rate)
+        t0 = time.perf_counter()
+        fn, meta = load_serving_artifact(path)
+        load_s = time.perf_counter() - t0
+        live = make_inference_fn(model, folded, iou_thr, conf_thr, keep_k=keep_k, device=dev)
+        args = tuple(torch.from_numpy(p).to(dev) for p in parts)
+        live_arg = args if len(args) > 1 else args[0]
+        zero()
+        dets = fn(x)
+        torch.cuda.synchronize()
+        for k, v in launches().items():
+            export_counts[k] += v
+        one_call = launches()
+        ref = unpack_detections(live(live_arg).cpu().numpy())
+        bit_equal = all(np.array_equal(dets[k], ref[k]) for k in ref)
+        m, e, bad = _rows_against(_dets_rows(dets, ecfg.sample_duration),
+                                  _dets_rows(ref, ecfg.sample_duration), conf_thr, iou_thr,
+                                  EXPORT_FLIP_TOL[name])
+        # the program on the card against the live function, in turns: as
+        # load_serving_artifact runs it (inference mode) and with autograd on
+        # (the loaded weights require grad); the ATen ops each dispatches per
+        # call; a profile of one call of each
+        prog = fn.program
+
+        def loaded():
+            with torch.inference_mode():
+                return prog(*args)
+
+        calls = {"live": lambda: live(live_arg), "loaded": loaded,
+                 "loaded_grad": lambda: prog(*args)}
+        by_name = {"live": _aten_ops(calls["live"]), "loaded": _aten_ops(loaded)}
+        ops = {k: sum(v.values()) for k, v in by_name.items()}
+        extra = {k: v for k, v in (by_name["loaded"] - by_name["live"]).items()}
+        missing = {k: v for k, v in (by_name["live"] - by_name["loaded"]).items()}
+        turns = {k: [] for k in calls}
+        for which in ("live", "loaded", "loaded_grad", "loaded_grad", "loaded", "live"):
+            turns[which].append(time_ms(calls[which], iters=10, warmup=2))
+        prof = {k: _host_device(f) for k, f in calls.items()}
+        # the cpu program at B=2 against the card's loaded program's first 2 clips
+        mc = ec = 0
+        bad_c, cpu_s = [], 0.0
+        if with_cpu:
+            t0 = time.perf_counter()
+            fn_cpu, _ = load_serving_artifact(path_cpu, device="cpu")
+            small_x = tuple(p[:2] for p in parts)
+            d_cpu = fn_cpu(small_x if len(small_x) > 1 else small_x[0])
+            first2 = {k: v[:2] for k, v in dets.items()}
+            mc, ec, bad_c = _rows_against(_dets_rows(first2, ecfg.sample_duration),
+                                          _dets_rows(d_cpu, ecfg.sample_duration), conf_thr,
+                                          iou_thr, EXPORT_FLIP_TOL[name])
+            cpu_s = time.perf_counter() - t0
+            del fn_cpu
+        n, nc = m + e + len(bad), mc + ec + len(bad_c)
+        log(f"[export {name}] traced (cuda B={BATCH}) in {export_s:.1f} s, saved in "
+            f"{save_s:.1f} s, loaded in {load_s:.2f} s; meta input {meta['input_shape']} "
+            f"{meta['input_dtype']}; loaded vs live on the card: bit-equal {bit_equal}, rows {m} "
+            f"matched, {e} explained flips, {len(bad)} unexplained; launches in one call "
+            f"{one_call}; forward + NMS in turns: "
+            + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in ts)} ms" for k, ts in turns.items())
+            + f"; ATen ops per call live {ops['live']}, loaded {ops['loaded']} (the loaded "
+            f"program's extra ops {extra}, missing {missing}) [{card}]")
+        for k, pr in prof.items():
+            log(f"[export {name}] profile of one {k} call: host {pr['host_ms']:.3f} ms, device "
+                f"busy {pr['device_busy_ms']:.3f} ms over {pr['kernels']} kernels; host ops by "
+                f"self time {pr['top_host_ops']} [{card}]")
+        if with_cpu:
+            log(f"[export {name}] the cpu program (B=2) loaded and run in {cpu_s:.1f} s: vs the "
+                f"card's first 2 clips {mc} matched, {ec} explained, {len(bad_c)} unexplained")
+        share = EXPORT_UNEXPLAINED[name]
+        # kernel 1 is not on the int8 posture's (q, scale) frames (the int8 DFT)
+        ran = (one_call["greedy_suppress_blocked"] == 1
+               and one_call["fused_mel_power"] == (0 if name.startswith("int8") else 1))
+        checks.append((f"export {name}: loaded = live on the card within flips, kernels 1 "
+                       "and 2 once per call", m > 0 and len(bad) <= share * n and ran))
+        if with_cpu:
+            checks.append((f"export {name}: cpu program B=2 = card within flips",
+                           mc > 0 and len(bad_c) <= max(share * nc, 0)))
+        res["export"][name] = dict(bit_equal=bit_equal, matched=m, explained=e,
+                                   unexplained=len(bad), live_ms=turns["live"],
+                                   loaded_ms=turns["loaded"], loaded_grad_ms=turns["loaded_grad"],
+                                   profile=prof, export_s=export_s, save_s=save_s, load_s=load_s,
+                                   cpu_s=cpu_s, aten_ops_live=ops["live"],
+                                   aten_ops_loaded=ops["loaded"], aten_ops_extra=extra,
+                                   aten_ops_missing=missing, cpu_matched=mc,
+                                   cpu_explained=ec, cpu_unexplained=len(bad_c))
+        del programs, fn, prog, live, model, args, live_arg, calls
+    res["export_launches"] = export_counts
+    res["export_s"] = time.perf_counter() - t_phase
+
+    # (b) make_multi_inference_fn: one CUDA graph over 4 forwards at B=32
+    t_part = time.perf_counter()
+    frames = [torch.from_numpy(fe.frame_host(w)).to(dev) for w in wav]
+    res["multi_launches"] = {c.__name__: 0 for c in COUNTERS}
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        model = AudioDetectionModel.from_config(cfg, 2, deploy=True, dtype=dtype)
+        single = make_inference_fn(copy.deepcopy(model), folded, iou_thr, conf_thr,
+                                   keep_k=keep_k, device=dev)
+        multi = make_multi_inference_fn(model, folded, MULTI_N, iou_thr, conf_thr, keep_k,
+                                        device=dev)
+        torch.backends.cudnn.deterministic = True
+        try:
+            first = multi(frames)  # eager on a side stream, then the capture
+            zero()
+            outs = multi(frames)   # the replay
+            torch.cuda.synchronize()
+            counts = launches()
+            eager = [single(f) for f in frames]
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for k, v in counts.items():
+            res["multi_launches"][k] += v
+        equal = all(torch.equal(a, b) for a, b in zip(outs, eager))
+        equal_first = all(torch.equal(a, b) for a, b in zip(first, eager))
+        turns = {"eager": [], "graph": []}
+        for which in ("eager", "graph", "graph", "eager"):
+            call = ((lambda: [single(f) for f in frames]) if which == "eager"
+                    else (lambda: multi(frames)))
+            turns[which].append(time_ms(call, iters=5, warmup=1) / MULTI_N)
+        busy_e, n_e, k1_e = _busy_share(lambda: [single(f) for f in frames])
+        busy_g, n_g, k1_g = _busy_share(lambda: multi(frames))
+        log(f"[multi {dtype_name}] {MULTI_N} x B={BATCH} framed int16 in one CUDA graph "
+            f"({len(multi.graphs)} captured): replay = 4 eager calls bit for bit {equal} (the "
+            f"capturing call's eager pass {equal_first}, deterministic cuDNN); launches in one "
+            f"replay {counts}; per batch in turns: eager "
+            f"{', '.join(f'{v:.3f}' for v in turns['eager'])} ms, graph "
+            f"{', '.join(f'{v:.3f}' for v in turns['graph'])} ms; device busy over a dispatch: "
+            f"eager {busy_e:.3f} ({n_e} kernels, {k1_e} kernel-1 events), graph {busy_g:.3f} "
+            f"({n_g} kernels, {k1_g} kernel-1 events) (profiler) [{card}]")
+        checks.append((f"multi {dtype_name}: one graph, replay = eager, kernels 1 and 2 once "
+                       "per forward",
+                       equal and len(multi.graphs) == 1
+                       and counts["fused_mel_power"] == MULTI_N
+                       and counts["greedy_suppress_blocked"] == MULTI_N))
+        res[f"multi_{dtype_name}"] = dict(equal=equal, eager_ms=turns["eager"],
+                                          graph_ms=turns["graph"], busy_eager=busy_e,
+                                          busy_graph=busy_g)
+        del model, single, multi, first, outs, eager
+    del frames
+    res["multi_s"] = time.perf_counter() - t_part
+
+    # (c) inference_cli --workers 2 over phase 7's directory and 150 s file,
+    # against --workers 1. The two --workers 2 runs share one pool: the
+    # second run's construction gets the first's workers, and the pool
+    # closes after both (each worker's launches from a ping first);
+    # detect_regime once the pool is warm
+    itmp = os.path.join(train_tmp, "inference")
+    t_part = time.perf_counter()
+    pool_seen = {"launches": None, "regime": None, "ready_s": None, "close_s": None,
+                 "exits": None}
+
+    class _Shared(pool_mod.StreamWorkerPool):
+        def __init__(self, *a, **kw):
+            self.t0, self.args = time.perf_counter(), (a, kw)
+            super().__init__(*a, **kw)
+
+        def warmup(self):
+            out = super().warmup()
+            if pool_seen["ready_s"] is None:
+                pool_seen["ready_s"] = time.perf_counter() - self.t0
+                pool_seen["regime"] = self.detect_regime(mb=64.0)
+                self.regime = None  # shard over every worker, as main does
+            return out
+
+        def close(self):  # main's close: the pool serves the next run
+            pass
+
+        def finish(self):
+            pool_seen["launches"] = pool_mod.StreamWorkerPool.warmup(self)  # a ping each
+            t0 = time.perf_counter()
+            super().close()
+            pool_seen["close_s"] = time.perf_counter() - t0
+            pool_seen["exits"] = [p.returncode for p in self._procs]
+
+    shared = []
+
+    def one_pool(*a, **kw):
+        if not shared:
+            shared.append(_Shared(*a, **kw))
+        assert shared[0].args == (a, kw), "the two --workers 2 runs build different pools"
+        return shared[0]
+
+    walls = {}
+    saved = inference_cli.StreamWorkerPool
+    inference_cli.StreamWorkerPool = one_pool
+    try:
+        for workers in ("1", "2"):
+            for where, arg in (("dir", ["--audio_dir", os.path.join(itmp, "audio")]),
+                               ("long", ["--audio_filepath", os.path.join(itmp, "long150.wav")])):
+                out = os.path.join(itmp, "out", f"pool_{where}_{workers}")
+                t0 = time.perf_counter()
+                inference_cli.main(["--config", os.path.join(itmp, "serving.yaml"),
+                                    "--model_path", os.path.join(itmp, "weights.pt"),
+                                    "--device", dev.type,
+                                    "--output_dir", out, "--iou_threshold", str(iou_thr),
+                                    "--conf_threshold", str(conf_thr), "--framed_input",
+                                    "--workers", workers, *arg])
+                torch.cuda.synchronize()
+                walls[(where, workers)] = time.perf_counter() - t0
+    finally:
+        inference_cli.StreamWorkerPool = saved
+        for pool in shared:
+            pool.finish()
+    pool_counts = {c.__name__: sum(w.get(c.__name__, 0) for w in pool_seen["launches"])
+                   for c in COUNTERS}
+    same = {}
+    for where in ("dir", "long"):
+        a = _csv_tree(os.path.join(itmp, "out", f"pool_{where}_1"))
+        b = _csv_tree(os.path.join(itmp, "out", f"pool_{where}_2"))
+        same[where] = (a == b and len(a) > 0, len(a))
+    regime = pool_seen["regime"] or {}
+    log(f"[pool] inference_cli --framed_input over the directory: --workers 1 "
+        f"{walls[('dir', '1')]:.2f} s, --workers 2 {walls[('dir', '2')]:.2f} s (the pool's "
+        f"start-up included); the 150 s file: {walls[('long', '1')]:.2f} s / "
+        f"{walls[('long', '2')]:.2f} s (the same pool, warm); model builds included; "
+        f"CSVs byte-identical: directory {same['dir']}, 150 s file {same['long']}; "
+        f"detect_regime(64 MB): {regime}; the workers' launches {pool_seen['launches']}; the "
+        f"pool ready (every worker's model built) after {pool_seen['ready_s']:.2f} s, closed in "
+        f"{pool_seen['close_s']:.2f} s, exit codes {pool_seen['exits']} [{card}]")
+    checks.append(("pool: --workers 2 CSVs = --workers 1, byte for byte",
+                   same["dir"][0] and same["long"][0]))
+    checks.append(("pool: kernels 1 and 2 launched in the workers, every worker exited 0",
+                   kernels_ran(pool_counts) and pool_seen["exits"] == [0, 0]))
+    res.update(pool_launches=pool_counts, pool_walls={f"{k[0]}_{k[1]}": v
+                                                      for k, v in walls.items()},
+               pool_regime=regime, pool_ready_s=pool_seen["ready_s"],
+               pool_close_s=pool_seen["close_s"], pool_s=time.perf_counter() - t_part)
+
+    # (d) SGD (nesterov) and Adagrad at steps_per_dispatch 4: 8 graph steps
+    # against 8 eager steps of the same optimizer form, as phase 12 reads Adam,
+    # within twice the spread of phase 12's two eager runs (the same model,
+    # batches and cuDNN mode: the spread is the forward and backward's);
+    # graph step time against Adam's in turns
+    tcfg = _train_config(train_tmp)
+    tc = tcfg.raw["train_config"]
+    train_ds, _ = train_cli.resolve_datasets(tcfg)
+    tfe = AudioDetectionModel.from_config(tcfg, 2).frontend
+    cached = DeviceCachedLoader.wrap(BatchLoader(train_ds, BATCH, seed=5, transfer_dtype="int16",
+                                                 framer=tfe.fused), device=dev)
+    batches = [b for _ in range(GRAPH_STEPS // len(cached)) for b in cached]
+    keys = ("loss", "param_median", "param_p90", "param_l2")
+
+    def trainer_for(opt_cfg, dtype=None, **kw):
+        model = AudioDetectionModel.from_config(tcfg, 2, dtype=dtype,
+                                                generator=torch.Generator().manual_seed(3))
+        return TrainerPipeline(model, train_cli.make_loss(tcfg, 2, train_ds.get_class_weights()),
+                               opt_cfg, None, use_lr_scheduler=False,
+                               model_path=os.path.join(train_tmp, "p13"),
+                               ema_config=tc.get("ema_config"), use_ema=True, device=dev, **kw)
+
+    def params(t):
+        return {k: p.detach().clone() for k, p in t.model.named_parameters()}
+
+    res["optim"] = {}
+    t_part = time.perf_counter()
+    # the fresh process of (a) runs beside the exactness checks, which time nothing
+    fresh_wait = _fresh_process_load(os.path.join(tmp, "framed_int16.aytx"))
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        for opt_name, opt_cfg in OPTIMIZERS_13.items():
+            lr = opt_cfg["lr"]
+            torch.backends.cudnn.deterministic = True
+            try:
+                graph = trainer_for(opt_cfg, dtype, steps_per_dispatch=DISPATCH)
+                start = params(graph)
+                dev_batches = [graph.put_batch(b) for b in batches]
+                t = trainer_for(opt_cfg, dtype, steps_per_dispatch=DISPATCH)
+                rows = []
+                for i, (x, tg) in enumerate(dev_batches):
+                    if i == DISPATCH:
+                        t.set_learning_rate(lr / 2)
+                    rows.append(t.train_step(x, tg))
+                runs = {"eager": (torch.stack(rows), params(t))}
+                del t
+                zero()
+                rows = [graph.train_steps(dev_batches[:DISPATCH])]
+                graph.set_learning_rate(lr / 2)
+                rows.append(graph.train_steps(dev_batches[DISPATCH:]))
+                runs["graph"] = (torch.cat(rows), params(graph))
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            per_replay = [g.counts[0] for g in graph._graphs.values()]
+
+            def readings(a, b):
+                (ra, pa), (rb, pb) = runs[a], runs[b]
+                pr = _param_readings(pa, pb, start)
+                return dict(loss=((ra[:, 0] - rb[:, 0]).abs() / rb[:, 0].abs()).max().item(),
+                            **{k: pr[k] for k in keys[1:]})
+
+            spread, got = postures[f"graph_{dtype_name}"]["spread"], readings("graph", "eager")
+            finite = bool(torch.isfinite(runs["graph"][0][:, [0, 1, 2, 5]]).all())
+            bound_ = {k: max(2 * spread[k], GRAPH_FLOOR) for k in keys}
+            losses = ", ".join(f"{v:.5f}" for v in runs["graph"][0][:, 0].tolist())
+            log(f"[optim {opt_name} {dtype_name}] {GRAPH_STEPS} steps at steps_per_dispatch "
+                f"{DISPATCH}: graph loss {losses}; "
+                f"graph vs eager of its form: " + ", ".join(f"{k} {got[k]:.3e}" for k in keys)
+                + "; phase 12's eager spread: " + ", ".join(f"{k} {spread[k]:.3e}" for k in keys)
+                + f"; kernel 1 per replay {per_replay} [{card}]")
+            checks.append((f"optim {opt_name} {dtype_name}: graph = eager of its form within "
+                           f"{bound_}", finite and all(got[k] <= bound_[k] for k in keys)
+                           and per_replay == [DISPATCH]))
+            res["optim"][f"{opt_name}_{dtype_name}"] = dict(against_eager=got, spread=spread)
+            del runs, dev_batches, graph
+    fresh, fresh_s = fresh_wait()
+    if fresh is not None:
+        log(f"[export] a fresh process with an empty build directory loaded and ran the "
+            f"framed_int16 artifact in {fresh_s:.1f} s (beside the optimizers' checks): built "
+            f"{fresh['built']}, launches {fresh['launches']}, models modules imported "
+            f"{fresh['models']}")
+    checks.append(("export: a fresh process builds the kernels at the loaded program's first "
+                   "call and imports no models module",
+                   fresh is not None and len(fresh["built"]) == 2 and not fresh["models"]
+                   and kernels_ran(fresh["launches"])))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        # graph step time of each optimizer against Adam's, in turns, each
+        # graph captured in cuDNN's default mode (as phase 12 times Adam's)
+        step_ms = {name: trainer_for(opt_cfg, dtype, steps_per_dispatch=DISPATCH)
+                   for name, opt_cfg in (*OPTIMIZERS_13.items(),
+                                         ("Adam", tc["optimizer_config"]))}
+        last = [step_ms["Adam"].put_batch(b) for b in batches[DISPATCH:]]
+        for t in step_ms.values():
+            t.train_steps(last)  # eager, then the capture
+        times = {k: [] for k in step_ms}
+        order = list(step_ms) + list(step_ms)[::-1]
+        for k in order:
+            times[k].append(time_ms(lambda: step_ms[k].train_steps(last), iters=3,
+                                    warmup=1) / DISPATCH)
+        log(f"[optim {dtype_name}] B={BATCH} graph step per step in turns: "
+            + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in ts)} ms" for k, ts in times.items())
+            + f" [{card}]")
+        res["optim"][f"step_ms_{dtype_name}"] = times
+        del step_ms, last
+    del cached
+    res["optim_s"] = time.perf_counter() - t_part
+
+    for name in ("export_launches", "multi_launches", "pool_launches"):
+        checks.append((f"{name}: kernels 1 and 2 launched ({res[name]})", kernels_ran(res[name])))
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 13] {res['seconds']:.1f} s: export {res['export_s']:.1f}, multi "
+        f"{res['multi_s']:.1f}, pool {res['pool_s']:.1f}, optimizers {res['optim_s']:.1f}")
+    for what, holds in checks:
+        log(f"[phase 13] {'ok  ' if holds else 'FAIL'} {what}")
+    bad = [what for what, holds in checks if not holds]
+    assert not bad, f"phase 13 checks failed: {bad}"
+    return res
+
+
+def _csv_tree(root):
+    found = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n)) as f:
+                found[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return found
 
 
 def main() -> int:
@@ -2603,6 +3228,7 @@ def main() -> int:
         custom = phase_custom(dev, card, tmp)
         int8 = phase_int8(dev, card, tmp)
         postures = phase_train_postures(dev, card, tmp)
+        rest = phase_port_rest(dev, card, tmp, postures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2616,7 +3242,10 @@ def main() -> int:
                     int8_launches=int8["launches"].get(name, 0),
                     graph_launches=postures["graph_launches"][name],
                     cache_launches=postures["cache_launches"][name],
-                    dp_launches=postures["dp_launches"][name])
+                    dp_launches=postures["dp_launches"][name],
+                    export_launches=rest["export_launches"][name],
+                    multi_launches=rest["multi_launches"][name],
+                    pool_launches=rest["pool_launches"][name])
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -2643,6 +3272,7 @@ def main() -> int:
     log(json.dumps({"int8": {k: v for k, v in int8.items() if k != "launches"}}))
     log(json.dumps({"train_postures": {k: v for k, v in postures.items()
                                        if not k.endswith("launches")}}))
+    log(json.dumps({"port_rest": {k: v for k, v in rest.items() if not k.endswith("launches")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,7 @@ package's root ``inference.py``, ``evaluate_model.py`` and
 import copy
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -44,6 +45,7 @@ from audioyolo_tpu_torch.ops.kmeans import kmeans_1d
 from synth import make_flat_dataset, save_reference_layout, synth_clip
 from test_torch_infer_dir import _seconds
 from test_torch_model import _randomize
+from test_torch_pool import workers_killed_after
 from torch_ref import TorchAudioDetectionNetwork, randomize_
 
 
@@ -276,8 +278,9 @@ def _int8_cfg(setup, tmp_path):
 @pytest.mark.parametrize("flags,item", [(["--int8"], "A10"), (["--transfer", "int8"], "A10"),
                                         (["--workers", "2"], "A11")])
 def test_inference_cli_refuses_unported_flags(flags, item, setup, tmp_path, monkeypatch):
-    """The A10 flags were ported and now write the JAX ``inference.main``
-    rows with the same flags; ``--workers 2`` (A11) still raises.
+    """The A10 and A11 flags were ported: the A10 flags write the JAX
+    ``inference.main`` rows with the same flags, and ``--workers 2`` (the
+    streaming pool) writes the CSVs of ``--workers 1`` byte for byte.
 
     - ``--int8``: both packages calibrate the int8 body on the directory's
       first file and serve it. Their scales agree to 1e-5
@@ -297,11 +300,29 @@ def test_inference_cli_refuses_unported_flags(flags, item, setup, tmp_path, monk
       (``tests/test_torch_frontend.py`` bounds the images), so the rows are
       held at ``_flip_compare``'s default ``flip_tol`` of 0.02, the bound
       ``chip_smoke.py`` phase 7 gives bf16 roundings. Without the int8
-      posture both raise."""
+      posture both raise.
+    - ``--workers 2`` over a directory of two native-rate files (the single
+      process batches them across files, the pool's workers file by file)
+      and over the 12 s file, three windows at ``--batch_size 2`` (two chunk
+      ranges, one per worker); the CSVs are compared byte for byte."""
     if item == "A11":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            inference_cli.main(["--config", setup["cfg"], "--model_path", setup["pt"],
-                                "--audio_dir", setup["audio"], "--device", "cpu", *flags])
+        two = tmp_path / "two"
+        two.mkdir()
+        for name in ("n0.wav", "n1.wav"):
+            shutil.copy(os.path.join(setup["audio"], name), two / name)
+        for where in (["--audio_dir", str(two)],
+                      ["--audio_filepath", os.path.join(setup["audio"], "n2.wav")]):
+            out = {}
+            for workers in ("1", "2"):
+                out[workers] = tmp_path / f"{where[0][2:]}_{workers}"
+                with workers_killed_after():
+                    inference_cli.main(["--config", setup["cfg"], "--model_path", setup["pt"],
+                                        "--batch_size", "2", *where, "--output_dir",
+                                        str(out[workers]), "--device", "cpu", "--workers",
+                                        workers])
+            one, two_ = _csvs(out["1"]), _csvs(out["2"])
+            assert one == two_ and len(one) == (2 if where[0] == "--audio_dir" else 1)
+            assert sum(len(rows) - 1 for rows in one.values()) > 0
         return
     rec = _Rows(monkeypatch)
     common = ["--config", setup["cfg"], "--batch_size", "2"]

@@ -87,11 +87,14 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
     import numpy as np
     import torch
 
-    from audioyolo_tpu_torch import evaluate_cli, inference_cli, serve
+    from audioyolo_tpu_torch import evaluate_cli, export_cli, inference_cli, serve
     from audioyolo_tpu_torch.config import Config
     from audioyolo_tpu_torch.device import resolve_device
     from audioyolo_tpu_torch.infer import make_inference_fn
+    from audioyolo_tpu_torch.infer.decode import make_multi_inference_fn
+    from audioyolo_tpu_torch.infer.export import build_serving_exported, load_serving_artifact
     from audioyolo_tpu_torch.models import AudioDetectionModel
+    from test_torch_pool import workers_killed_after
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -122,4 +125,15 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
         inference_cli.main(["--model_path", "model.pt", "--audio_dir", "."])
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_cli.main(["--dataset_path", ".", "--model_path", "model.pt"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_serving_exported(model, model.state_dict(), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_serving_artifact("model.aytx")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_multi_inference_fn(model, model.state_dict(), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_cli.main(["--model_path", "model.pt", "--output", "model.aytx"])
+    # the pool's workers build their models on the card and report why they cannot
+    with workers_killed_after(), pytest.raises(RuntimeError, match="stream worker 0 failed.*CUDA"):
+        inference_cli.main(["--workers", "2", "--model_path", "model.pt", "--audio_dir", "."])
     assert resolve_device("cpu").type == "cpu"

@@ -193,8 +193,9 @@ def test_steps_per_dispatch_matches_single_steps_and_jax():
 
 def test_learning_rate_and_ema_across_a_dispatch():
     """A captured step reads a tensor learning rate: ``set_learning_rate``
-    and the scheduler fill it in place (the graph keeps its address), and an
-    optimizer without a capturable form refuses. The EMA counts on the
+    and the scheduler fill it in place (the graph keeps its address), and
+    SGD and Adagrad, which torch gives no capturable form, take the port's
+    (``train/optim.py``). The EMA counts on the
     device: one count per step, ``m(n)`` in float32 as the JAX package
     computes it."""
     p = torch.nn.Parameter(torch.ones(3))
@@ -206,9 +207,9 @@ def test_learning_rate_and_ema_across_a_dispatch():
     opt.step()
     sched.step()
     assert opt.param_groups[0]["lr"] is lr and lr.item() == pytest.approx(2.5e-4)
-    for name in ("SGD", "Adagrad"):
-        with pytest.raises(NotImplementedError, match="capturable"):
-            make_optimizer([p], {"name": name, "lr": 0.1}, capturable=True)
+    for name in ("SGD", "Adagrad"):  # their capturable forms (train/optim.py)
+        opt = make_optimizer([p], {"name": name, "lr": 0.1}, capturable=True)
+        assert type(opt).__name__ == f"Capturable{name}"
     adam = make_optimizer([p], {"name": "Adam", "lr": 0.1}, capturable=True)
     assert adam.defaults["capturable"]
 
