@@ -46,6 +46,31 @@ from .serve import get_label_map
 from .train_cli import load_annotations
 
 
+def split_events(loader, run, sample_duration: float):
+    """``(detections, ground_truth)`` of a split: ``run(batch)`` gives the
+    packed detections of a loader batch; a detection is ``(clip, class,
+    confidence, start, end)`` and a ground truth ``(clip, class, start,
+    end)``, clips numbered in loader order."""
+    detections, ground_truth = [], []
+    clip = 0
+    for batch in loader:
+        out = run(batch)
+        rows = postprocess_detections(unpack_detections(out.cpu().numpy()), sample_duration,
+                                      return_start_end=True)
+        b = len(rows)
+        for i in range(b):
+            fid = clip + i
+            for conf, _obj, cls, start, end in rows[i]:
+                detections.append((fid, cls, conf, start, end))
+            mask = batch["valid"][i] & (batch["classes"][i] != -100)
+            for j in np.nonzero(mask)[0]:
+                c = float(batch["centers"][i, j])
+                w = float(batch["widths"][i, j])
+                ground_truth.append((fid, int(batch["classes"][i, j]), c - w / 2, c + w / 2))
+        clip += b
+    return detections, ground_truth
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="Event-mAP evaluation (PyTorch port)")
     parser.add_argument("--config", type=str, default="config/config.yaml", metavar="")
@@ -100,27 +125,13 @@ def main(argv=None) -> dict:
     if frame_fn is None:  # host framing needs host-resident audio
         loader = DeviceCachedLoader.wrap_from_config(loader, tpu_cfg, device)
 
-    detections, ground_truth = [], []
-    clip = 0
-    for batch in loader:
+    def run(batch):
         audio = batch["audio"]
         if int8_frames:
             audio = frame_fn(audio[:, 0, :] if audio.ndim == 3 else audio)
-        out = infer_fn(audio if torch.is_tensor(audio) else model_input_on(audio, device))
-        rows = postprocess_detections(unpack_detections(out.cpu().numpy()), cfg.sample_duration,
-                                      return_start_end=True)
-        b = batch["audio"].shape[0]
-        for i in range(b):
-            fid = clip + i
-            for conf, _obj, cls, start, end in rows[i]:
-                detections.append((fid, cls, conf, start, end))
-            mask = batch["valid"][i] & (batch["classes"][i] != -100)
-            for j in np.nonzero(mask)[0]:
-                c = float(batch["centers"][i, j])
-                w = float(batch["widths"][i, j])
-                ground_truth.append((fid, int(batch["classes"][i, j]), c - w / 2, c + w / 2))
-        clip += b
+        return infer_fn(audio if torch.is_tensor(audio) else model_input_on(audio, device))
 
+    detections, ground_truth = split_events(loader, run, cfg.sample_duration)
     thresholds = [round(t, 2) for t in np.arange(0.5, 0.96, 0.05)]
     result = event_map(detections, ground_truth, num_classes, iou_thresholds=thresholds)
     result["mAP@[.5:.95]"] = result.pop("mAP")

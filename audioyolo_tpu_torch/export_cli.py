@@ -70,8 +70,7 @@ def main(argv=None) -> None:
     idx2class = get_label_map(class_map_path)
 
     dtype = torch.bfloat16 if args.bf16 else None
-    train_model = AudioDetectionModel.from_config(cfg, len(idx2class), dtype=dtype)
-    state = fold_repvgg(load_model_state(train_model, model_path))
+    state = fold_repvgg(load_model_state(model_path, cfg, len(idx2class)))
     model = AudioDetectionModel.from_config(cfg, len(idx2class), deploy=True, dtype=dtype)
     frame_shape, framed_int8, frame_fn = None, False, None
     if args.framed:

@@ -58,16 +58,18 @@ from .ops.frontend import SpectralFrontend
 from .serve import get_label_map
 
 
-def load_model_state(model: AudioDetectionModel, model_path: str) -> Dict[str, torch.Tensor]:
-    """The train-form state dict for ``model`` from a ``.pt`` (the port's),
-    ``.pth``/``.pth.tar`` (the reference's) or ``.msgpack`` (the JAX
-    trainer's) checkpoint."""
+def load_model_state(model_path: str, cfg, num_classes: int) -> Dict[str, torch.Tensor]:
+    """The train-form state dict of ``cfg``'s model with ``num_classes``
+    from a ``.pt`` (the port's), ``.pth``/``.pth.tar`` (the reference's,
+    read against the names and shapes of a train-form model built for it
+    alone) or ``.msgpack`` (the JAX trainer's) checkpoint."""
     if not os.path.isfile(model_path):
         raise FileNotFoundError(f"path: {model_path} does not exist")
     if model_path.endswith(".pt"):
         return torch.load(model_path, map_location="cpu", weights_only=True)
     if model_path.endswith((".pth", ".pth.tar")):
-        return import_torch_state_dict(load_torch_checkpoint(model_path), model.state_dict())
+        template = AudioDetectionModel.from_config(cfg, num_classes).state_dict()
+        return import_torch_state_dict(load_torch_checkpoint(model_path), template)
     if model_path.endswith(".msgpack"):
         return state_dict_from_jax(load_msgpack(model_path))
     raise ValueError(f"unknown checkpoint format '{model_path}' (.pt, .pth, .pth.tar or .msgpack)")
@@ -102,14 +104,13 @@ def build_inference(cfg, num_classes: int, model_path: str, iou_threshold: float
         fold = False
     if int8_calib is not None and not fold:
         raise ValueError("--int8 requires the folded model (drop --no_fold/--ref_exact)")
-    train_model = AudioDetectionModel.from_config(cfg, num_classes, branch_act=ref_exact,
-                                                  dtype=dtype)
-    state = load_model_state(train_model, model_path)
+    state = load_model_state(model_path, cfg, num_classes)
     if fold:
         model = AudioDetectionModel.from_config(cfg, num_classes, deploy=True, dtype=dtype)
         state = fold_repvgg(state)
     else:
-        model = train_model
+        model = AudioDetectionModel.from_config(cfg, num_classes, branch_act=ref_exact,
+                                                dtype=dtype)
     if int8_calib is not None:
         model.load_state_dict(state)
         model.to(dev).eval()

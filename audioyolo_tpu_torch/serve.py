@@ -15,16 +15,21 @@ Endpoints (the same routes and JSON as the JAX server):
 Requests are served one at a time (one device, one lock).
 
 Usage:
-  python -m audioyolo_tpu_torch.serve --model_path weights.pt \
-      [--config config/config.yaml] [--port 8700] [--bf16] [--int8_calib calib.wav]
+  python -m audioyolo_tpu_torch.serve [--config config/config.yaml] [--model_path M]
+      [--port 8700] [--bf16] [--framed_input] [--int8_calib calib.wav] [--device cuda]
 
-``--model_path`` is a ``torch.save``d train-form state dict of the port's
-``AudioDetectionModel`` (``models/from_jax.py`` converts JAX variables); it
-is folded to the deploy form at load. ``--bf16`` runs the backbone and neck
-in bfloat16 on the same float32 weights; ``--int8_calib`` runs the int8 body
-(``models/quant.py``) at scales calibrated on the first windows of a WAV.
-Files at the model rate are framed on the host (``frame_host``, or
-``frame_host_int8`` under ``frontend_precision: int8``).
+The flags are the JAX server's, plus ``--device`` (the card by default).
+``--model_path`` defaults to ``<train_config.model_path>/AudioDetectionModel.pt``
+(what ``train_cli`` saves) and takes any checkpoint that
+``inference_cli.load_model_state`` reads: the port's ``.pt`` (a train-form
+state dict), a reference ``.pth``/``.pth.tar`` or the JAX trainer's
+``.msgpack``. It is folded to the deploy form at load. ``--bf16`` runs the
+backbone and neck in bfloat16 on the same float32 weights; ``--int8_calib``
+runs the int8 body (``models/quant.py``) at scales calibrated on the first
+windows of a WAV. Requests go through the waveform path unless
+``--framed_input`` is given: then files at the model rate are framed on the
+host (``frame_host``, or ``frame_host_int8`` under ``frontend_precision:
+int8``), and a config whose frontend has no framer raises.
 """
 
 from __future__ import annotations
@@ -57,15 +62,18 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
                     class_map_path: Optional[str] = None, batch_size: int = 0,
                     iou_threshold: float = 0.1, conf_threshold: float = 0.2,
                     device: DeviceLike = None, dtype: Optional[torch.dtype] = None,
-                    int8_calib: Optional[str] = None) -> dict:
+                    int8_calib: Optional[str] = None, framed_input: bool = False) -> dict:
     """Load the model and build the inference function once.
 
     Weights come from ``state_dict`` (train form, in memory) or else from
-    ``model_path``. ``device`` defaults to the card; ``dtype`` is the body's
-    compute dtype (``torch.bfloat16`` for ``--bf16``); ``int8_calib`` a WAV
-    whose first windows calibrate the int8 body.
+    ``model_path`` (default ``<train_config.model_path>/AudioDetectionModel.pt``;
+    ``.pt``, ``.pth``/``.pth.tar`` or ``.msgpack``). ``device`` defaults to
+    the card; ``dtype`` is the body's compute dtype (``torch.bfloat16`` for
+    ``--bf16``); ``int8_calib`` a WAV whose first windows calibrate the int8
+    body; ``framed_input`` frames requests on the host (``--framed_input``).
     """
-    from .inference_cli import load_calib_batch, model_input_on
+    from .inference_cli import (build_frame_fn, load_calib_batch, load_model_state,
+                                model_input_on)
     from .models.quant import calibrate_quant, set_quant
 
     dev = resolve_device(device)
@@ -73,15 +81,12 @@ def build_app_state(config="config/config.yaml", *, model_path: Optional[str] = 
     tc = cfg.raw["train_config"]
     idx2class = get_label_map(
         class_map_path or os.path.join(tc["class_map_path"], "class_map.json"))
-    if state_dict is None:
-        if not model_path:
-            raise ValueError("give a state_dict or a model_path")
-        state_dict = torch.load(model_path, map_location="cpu", weights_only=True)
     model = AudioDetectionModel.from_config(cfg, num_classes=len(idx2class), deploy=True,
                                             dtype=dtype)
-    fe = model.frontend
-    frame_fn = None if fe.fused is None else (fe.frame_host_int8 if fe.fused_int8
-                                              else fe.frame_host)
+    if state_dict is None:
+        path = model_path or os.path.join(tc["model_path"], "AudioDetectionModel.pt")
+        state_dict = load_model_state(path, cfg, len(idx2class))
+    frame_fn = build_frame_fn(cfg) if framed_input else None
     state_dict = fold_repvgg(state_dict)
     if int8_calib:
         model.load_state_dict(state_dict)
@@ -180,26 +185,40 @@ def serve(state: dict, host: str, port: int) -> ThreadingHTTPServer:
     return ThreadingHTTPServer((host, port), make_handler(state))
 
 
-def main() -> None:
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX server's flags, plus ``--device``."""
     p = argparse.ArgumentParser(description="Audio detection HTTP server (PyTorch port)")
     p.add_argument("--config", type=str, default="config/config.yaml", metavar="")
     p.add_argument("--class_map_path", type=str, default="", metavar="")
-    p.add_argument("--model_path", type=str, required=True, metavar="")
+    p.add_argument("--model_path", type=str, default="", metavar="")
     p.add_argument("--host", type=str, default="127.0.0.1", metavar="")
     p.add_argument("--port", type=int, default=8700, metavar="")
     p.add_argument("--batch_size", type=int, default=0, metavar="")
     p.add_argument("--iou_threshold", type=float, default=0.1, metavar="")
     p.add_argument("--conf_threshold", type=float, default=0.2, metavar="")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute for the detector body")
+    p.add_argument("--framed_input", action="store_true",
+                   help="frame clips on the host for the fused frontend; raises when the "
+                        "config's frontend has no framer")
     p.add_argument("--int8_calib", type=str, default="", metavar="",
                    help="wav file to calibrate an int8 detector body on")
-    args = p.parse_args()
+    p.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
+    return p
 
-    state = build_app_state(
-        args.config, model_path=args.model_path, class_map_path=args.class_map_path or None,
-        batch_size=args.batch_size, iou_threshold=args.iou_threshold,
-        conf_threshold=args.conf_threshold, dtype=torch.bfloat16 if args.bf16 else None,
-        int8_calib=args.int8_calib or None)
+
+def app_state_from_args(args: argparse.Namespace) -> dict:
+    """``build_app_state`` for parsed command-line flags."""
+    return build_app_state(
+        args.config, model_path=args.model_path or None,
+        class_map_path=args.class_map_path or None, batch_size=args.batch_size,
+        iou_threshold=args.iou_threshold, conf_threshold=args.conf_threshold,
+        device=args.device, dtype=torch.bfloat16 if args.bf16 else None,
+        int8_calib=args.int8_calib or None, framed_input=args.framed_input)
+
+
+def main(argv=None) -> None:
+    args = make_parser().parse_args(argv)
+    state = app_state_from_args(args)
     httpd = serve(state, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port} "
           f"(classes: {list(state['idx2class'].values())})")

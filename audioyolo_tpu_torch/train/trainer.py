@@ -54,7 +54,12 @@ The JAX package's step settings:
   each rank's gradients are its rows' part of the global gradient and the
   parameters' gradients are summed over the group (no division by the world
   size: the loss is already global). Every rank keeps the same state.
-- ``prng_impl`` (the TPU's hardware RNG) raises ``NotImplementedError``.
+- ``prng_impl`` (``train_prng``): the names the JAX package takes,
+  ``threefry2x32``, ``rbg`` and ``unsafe_rbg``; any other raises JAX's
+  ``ValueError``. The masks come from the step's seeded generator whatever
+  the name: on the card that is Philox, a counter-based generator of the
+  family XLA's ``RngBitGenerator`` uses off the TPU, and like ``rbg`` in JAX
+  a stream that differs from threefry's but is fixed per seed.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ import contextlib
 import csv
 import math
 import os
+import warnings
 from datetime import datetime
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -158,6 +164,18 @@ def _shape_key(batches) -> Tuple:
                  for a, t in batches)
 
 
+PRNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
+
+
+def check_prng_impl(name: Optional[str]) -> None:
+    """Raise, as ``jax.random.key(seed, impl=name)`` does, for a
+    ``train_prng`` name the JAX package does not know."""
+    if name and name not in PRNG_IMPLS:
+        known = ", ".join(f'"{n}"' for n in PRNG_IMPLS)
+        raise ValueError(f'unrecognized PRNG implementation "{name}". '
+                         f"Did you mean one of: {known}?")
+
+
 class TrainerPipeline:
     def __init__(self, model, loss_fn: AudioDetectionLoss, optimizer_config: Dict[str, Any],
                  lr_scheduler_config: Optional[Dict[str, Any]] = None,
@@ -166,10 +184,8 @@ class TrainerPipeline:
                  use_ema: bool = False, seed: int = 42, steps_per_dispatch: int = 1,
                  remat: bool = False, prng_impl: Optional[str] = None,
                  device: DeviceLike = None, process_group=None):
-        if prng_impl:
-            raise NotImplementedError(
-                f"train_prng '{prng_impl}' is the TPU's hardware RNG; the port draws dropout "
-                "masks from a seeded torch.Generator (ROADMAP)")
+        check_prng_impl(prng_impl)
+        self.prng_impl = prng_impl or None
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -490,3 +506,44 @@ class TrainerPipeline:
                     w.writerow(list(rows[0]))
                     w.writerows([["" if math.isnan(v) else repr(v) for v in r.values()]
                                  for r in rows])
+
+    def save_metrics_plots(self, figsize=(25, 10)) -> None:
+        """``train_metrics_plot.jpg`` and ``eval_metrics_plot.jpg`` in
+        ``metrics_path`` (rank 0 alone), as the JAX package draws them. Where
+        matplotlib is missing this warns once and writes nothing: the CSVs
+        hold the same numbers (the JAX package raises ``ImportError``)."""
+        if self.rank != 0:
+            return
+        try:
+            import matplotlib
+        except ImportError:
+            warnings.warn("matplotlib is not installed: the metric plots are not written "
+                          f"(the CSVs in {self.metrics_path} hold the same metrics)",
+                          stacklevel=2)
+            return
+        matplotlib.use("Agg")
+        for mode in ("train", "eval"):
+            self._save_plot(mode, figsize)
+
+    def _save_plot(self, mode: str, figsize) -> None:
+        """One subplot per metric column, in the CSV's column order; nothing
+        for a split without rows."""
+        from matplotlib import pyplot as plt
+
+        rows = getattr(self, f"{mode}_metrics")
+        columns = list(dict.fromkeys(k for r in rows for k in r))
+        if not rows or not columns:
+            return
+        fig, axs = plt.subplots(len(columns), 1, figsize=figsize)
+        if len(columns) == 1:
+            axs = [axs]
+        for ax, col in zip(axs, columns):
+            label = col.replace("_", " ").title()
+            ax.plot(np.array([r.get(col, np.nan) for r in rows], np.float64))
+            ax.grid(visible=True)
+            ax.set_xlabel("Epoch")
+            ax.set_ylabel(label)
+            ax.set_title(f"[{mode.title()}] {label} vs Epoch")
+        os.makedirs(self.metrics_path, exist_ok=True)
+        fig.savefig(os.path.join(self.metrics_path, f"{mode}_metrics_plot.jpg"))
+        plt.close(fig)

@@ -12,7 +12,8 @@ epoch loop: one training epoch, one evaluation, the best-eval-loss model
 saved (``<model_path>/AudioDetectionModel.pt``, a train-form state dict that
 ``python -m audioyolo_tpu_torch.serve --model_path`` loads), the plateau
 controller stepped, and a resume checkpoint every ``checkpoint_every``
-epochs; the metric CSVs at the end. ``--device`` defaults to the CUDA card.
+epochs; the metric CSVs and plots at the end. ``--device`` defaults to the
+CUDA card.
 
 ``tpu_config.compute_dtype: bfloat16`` (or ``bf16``) trains a bfloat16 body
 (``models/layers.py``); parameters, Adam's moments, the EMA and the
@@ -33,8 +34,13 @@ environment it is a world of one (the pad policy, no group).
 and ``device_cache_max_mb`` (512) keep a split that fits on the device
 (``data/loader.py::DeviceCachedLoader``), as the JAX ``train.py`` does; a
 sharded split is never cached. ``steps_per_dispatch`` and ``train_remat``
-are the trainer's. Not ported: the metric plots and ``train_prng`` (the
-TPU's hardware RNG), which raises ``NotImplementedError``.
+are the trainer's; ``train_prng`` takes the JAX package's names
+(``threefry2x32``, ``rbg``, ``unsafe_rbg``) and the masks come from the
+step's seeded generator whatever the name (``train/trainer.py``). After the
+CSVs come the metric plots (``train_metrics_plot.jpg``,
+``eval_metrics_plot.jpg``), which are skipped with a warning where matplotlib
+is missing. ``main`` sets up the reference's log format
+(``utils/logging.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from .models.detector import AudioDetectionModel
 from .train.loss import AudioDetectionLoss
 from .train.optim import ReduceLROnPlateau, is_plateau
 from .train.trainer import TrainerPipeline
+from .utils.logging import setup_logging
 
 SEED = 42
 
@@ -197,6 +204,7 @@ def run(cfg, resume: bool = False, device: DeviceLike = None,
             extra = {"plateau": plateau.state_dict()} if plateau is not None else None
             trainer.save_checkpoint(epoch, best_loss, extra=extra)
     trainer.metrics_to_csv()
+    trainer.save_metrics_plots(figsize=(25, 10))
     return trainer
 
 
@@ -216,4 +224,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    setup_logging()
     main()

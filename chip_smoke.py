@@ -119,7 +119,25 @@ Phases, each of which raises on failure:
     workers' launches from their ``ping``); SGD (nesterov) and Adagrad at
     ``steps_per_dispatch: 4`` against eager steps of their capturable form,
     and their graph step time against Adam's in turns;
-14. print one JSON line of every kernel's numbers (with each path's
+14. the last modules of the JAX package's surface (needs phases 6 and 7's
+    files): the server on the JAX server's command line (every flag parsed;
+    the default ``--model_path``, phase 6's saved model; one 150 s request
+    on the waveform path and one with ``--framed_input``, each path's rows
+    against the same path on the CPU, its launches and host framer calls);
+    ``train_prng: rbg`` (two steps at B=32, a second run from the same seed
+    equal bit for bit under deterministic cuDNN); the int8 transfer gate
+    (``gate_int8_cli``) on phase 6's model, card against ``--device cpu``,
+    on phase 6's eval split and on its full-length clips with their spans
+    stretched to the whole clip: the mAPs (absolute and relative gap), and
+    every detection inside the audio, matched within 1e-3 s, a threshold
+    flip or a twin within the gate's own tolerances (the rows over a
+    zero-padded tail, where the MFCC image is rounding noise, are counted
+    and not held);
+    ``get_dataset_cli`` on ten 60 s files at 16 kHz,
+    resampled to 22 050 Hz on the card against the CPU; phase 6 has already
+    read the metric plots (written, or one warning where matplotlib is
+    missing);
+15. print one JSON line of every kernel's numbers (with each path's
     launches), then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -183,6 +201,11 @@ TRAIN_CLIPS, EVAL_CLIPS = 64, 32
 INFER_SHORT_FILES = 40
 ROW_DIFFER_SHARE = 0.05
 MAP_GAP_BOUND = 0.02
+# phase 14's gate, card vs CPU: the mAP gap over the CPU's mAP. Phase 6's
+# one-epoch model reads mAP@0.5 ~0.035 on its eval split, where
+# MAP_GAP_BOUND is more than half the value; the card read 4.85e-2 there
+# (the int16 entry). The strict check is on the rows inside the audio.
+MAP_REL_GAP_BOUND = 0.1
 # the bf16 body against the float32 body on the same clips (phase 9): the
 # combined predictions' |diff| / max|value| at the 99th percentile; the share
 # of float32 detections that find a bf16 one of their class with the center
@@ -609,7 +632,7 @@ def phase_serving(dev, card):
     sd = _randomize_bn(AudioDetectionModel.from_config(cfg, 2, generator=gen).state_dict(), gen)
     t0 = time.perf_counter()
     state = serve.build_app_state(cfg, state_dict=sd, class_map_path=cmap,
-                                  batch_size=BATCH, device=dev)
+                                  batch_size=BATCH, device=dev, framed_input=True)
     infer_fn = state["infer_fn"]
     fe = infer_fn.model.frontend
     # warm-up outside the counted run: both input paths once
@@ -922,6 +945,17 @@ def phase_training(dev, card, tmp):
     dtype_warnings = [str(w.message) for w in caught if "dtype" in str(w.message)]
     assert cfg.raw["tpu_config"]["compute_dtype"] == "bfloat16"
     assert not dtype_warnings and cli_trainer.model.dtype == torch.bfloat16, dtype_warnings
+    # the metric plots: drawn where matplotlib is installed, else one warning
+    plot_warnings = [str(w.message) for w in caught if "matplotlib" in str(w.message)]
+    plots = sorted(f for f in os.listdir(tc["metrics_path"]) if f.endswith(".jpg"))
+    try:
+        import matplotlib  # noqa: F401
+        want_plots, want_warnings = ["eval_metrics_plot.jpg", "train_metrics_plot.jpg"], 0
+    except ImportError:
+        want_plots, want_warnings = [], 1
+    log(f"[training] metric plots written {plots}; matplotlib warnings {plot_warnings}")
+    assert plots == want_plots and len(plot_warnings) == want_warnings, (plots, plot_warnings)
+    res["plot_warnings"] = len(plot_warnings)
     train_ds, eval_ds = train_cli.resolve_datasets(cfg)
     model = AudioDetectionModel.from_config(cfg, 2, generator=torch.Generator().manual_seed(1))
     trainer = TrainerPipeline(model, train_cli.make_loss(cfg, 2, train_ds.get_class_weights()),
@@ -973,7 +1007,7 @@ def phase_training(dev, card, tmp):
     state = serve.build_app_state(cfg, model_path=saved,
                                   class_map_path=os.path.join(tc["class_map_path"],
                                                               "class_map.json"),
-                                  batch_size=BATCH, device=dev)
+                                  batch_size=BATCH, device=dev, framed_input=True)
     fe = state["infer_fn"].model.frontend
     clips = np.zeros((2, cfg.clip_samples), np.int16)
     packed = state["infer_fn"](torch.from_numpy(fe.frame_host(clips)).to(dev)).cpu()
@@ -2155,7 +2189,8 @@ def phase_int8(dev, card, train_tmp):
     cmap = os.path.join(ROOT, "idx2class_mapping", "class_map.json")
     calib = os.path.join(native_dir, sorted(os.listdir(native_dir))[0])
     state = serve.build_app_state(cfg, model_path=weights, class_map_path=cmap,
-                                  batch_size=BATCH, device=dev, int8_calib=calib)
+                                  batch_size=BATCH, device=dev, int8_calib=calib,
+                                  framed_input=True)
     httpd = serve.serve(state, "127.0.0.1", 0)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
@@ -3187,6 +3222,361 @@ def phase_port_rest(dev, card, train_tmp, postures):
     return res
 
 
+def _wav_seconds(path):
+    from audioyolo_tpu_torch.data.wavio import read_wav_info
+
+    rate, frames, _ = read_wav_info(path)
+    return frames / rate
+
+
+def _raw_dataset(root, n, seconds, rate, seed):
+    """``n`` PCM16 WAVs of tones over noise and two annotation JSONs, in the
+    unsplit layout ``get_dataset.py`` expects under ``root/openbmat/raw``."""
+    import numpy as np
+
+    from audioyolo_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    audio, anns = (os.path.join(root, "openbmat", "raw", d) for d in ("audio", "anns"))
+    os.makedirs(audio)
+    os.makedirs(anns)
+    t = np.arange(int(seconds * rate)) / rate
+    for i in range(n):
+        x = 0.01 * rng.standard_normal(t.size) + 0.3 * np.sin(2 * np.pi * 440.0 * (1 + i) * t)
+        write_wav(os.path.join(audio, f"clip{i}.wav"), x.astype(np.float32), rate)
+    for name in ("annotations_a.json", "annotations_b.json"):
+        with open(os.path.join(anns, name), "w") as f:
+            json.dump({"dummy": True}, f)
+
+
+def phase_last_modules(dev, card, train_tmp):
+    """Phase 14: the server on the JAX server's command line (the waveform
+    path by default, ``--framed_input``, the default ``--model_path``),
+    ``train_prng: rbg``, the int8 transfer gate and dataset preparation,
+    each on the card against the CPU; needs phases 6 and 7's files."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch import gate_int8_cli, get_dataset_cli, serve, train_cli
+    from audioyolo_tpu_torch.data.loader import BatchLoader
+    from audioyolo_tpu_torch.data.wavio import read_wav, read_wav_info
+    from audioyolo_tpu_torch.models import AudioDetectionModel
+    from audioyolo_tpu_torch.ops.cuda_graph import COUNTERS
+    from audioyolo_tpu_torch.train import TrainerPipeline
+
+    checks, res = [], {}
+    t_phase = time.perf_counter()
+
+    def zero():
+        for c in COUNTERS:
+            c.launches = 0
+
+    def launches():
+        return {c.__name__: c.launches for c in COUNTERS}
+
+    cfg6 = _train_config(train_tmp)
+    tc = cfg6.raw["train_config"]
+    itmp = os.path.join(train_tmp, "inference")
+    train_yaml = os.path.join(itmp, "train.yaml")  # phase 6's config, written by phase 7
+    long_path = os.path.join(itmp, "long150.wav")
+
+    # A. the server on the JAX server's command line: every JAX flag parsed;
+    # no --model_path (the default is phase 6's saved model); one 150 s
+    # request on the waveform path, one with --framed_input; each path's rows
+    # against the same path on the CPU
+    t_part = time.perf_counter()
+    jax_line = ["--config", train_yaml, "--class_map_path", "", "--model_path", "",
+                "--host", "127.0.0.1", "--port", "0", "--batch_size", str(BATCH),
+                "--iou_threshold", "0.1", "--conf_threshold", "0.2", "--int8_calib", ""]
+    parser = serve.make_parser()
+    full = parser.parse_args(jax_line + ["--bf16", "--framed_input"])
+    checks.append(("serve parses the JAX command line", full.bf16 and full.framed_input
+                   and full.port == 0 and full.device == "cuda"))
+    with open(long_path, "rb") as f:
+        body = f.read()
+    serve_counts, framer_calls = {}, {}
+    res["serve"] = {}
+    for path, extra in (("waveform", []), ("framed", ["--framed_input"])):
+        args = parser.parse_args(jax_line + extra)
+        state = serve.app_state_from_args(args)
+        calls = [0]
+        if state["frame_fn"] is not None:
+            framer = state["frame_fn"]
+
+            def counted(*a, _framer=framer, **k):
+                calls[0] += 1
+                return _framer(*a, **k)
+
+            state["frame_fn"] = counted
+        rows = {}
+        real = serve.evaluate_audio
+
+        def recording(key, real=real, rows=rows):
+            def run(*a, **k):
+                rows[key] = real(*a, **k)
+                return rows[key]
+            return run
+
+        httpd = serve.serve(state, "127.0.0.1", 0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            serve.evaluate_audio = recording("card")
+            zero()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/detect",
+                                         data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, out = r.status, json.loads(r.read())
+            req_ms = (time.perf_counter() - t0) * 1e3
+            serve_counts[path], framer_calls[path] = launches(), calls[0]
+            cpu_state = serve.app_state_from_args(parser.parse_args(jax_line + extra
+                                                                    + ["--device", "cpu"]))
+            serve.evaluate_audio = recording("cpu")
+            serve.detect_wav_bytes(cpu_state, body)
+        finally:
+            serve.evaluate_audio = real
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+        m, e, unexplained, dt, dc = _compare_rows(rows["card"], rows["cpu"], 0.2, 0.1)
+        log(f"[serve cli] {path}: 150 s request {status}, {len(out.get('rows', []))} rows, "
+            f"{req_ms:.1f} ms; host framer calls {calls[0]}; launches {serve_counts[path]}; "
+            f"card vs CPU rows: {m} matched, {e} explained flips, {len(unexplained)} "
+            f"unexplained, max |dt| {dt:.2e} s, max |dconf| {dc:.2e} [{card}]")
+        counts = serve_counts[path]
+        checks.append((f"serve {path}: answered, kernels 1 and 2 launched",
+                       status == 200 and set(out) == {"events", "rows"} and out["rows"]
+                       and counts["fused_mel_power"] > 0 and counts["greedy_suppress_blocked"] > 0))
+        checks.append((f"serve {path}: host framer calls", (calls[0] > 0) == (path == "framed")))
+        checks.append((f"serve {path}: rows match the CPU's", not unexplained and m > 0))
+        res["serve"][path] = dict(request_ms=req_ms, rows=len(rows["card"]), matched=m,
+                                  explained=e, framer_calls=calls[0])
+    saved = os.path.join(tc["model_path"], "AudioDetectionModel.pt")
+    checks.append(("serve's default --model_path is phase 6's saved model",
+                   os.path.isfile(saved) and full.model_path == ""))
+    res["serve_s"] = time.perf_counter() - t_part
+
+    # B. train_prng: rbg, two steps at B=32 twice from one seed under
+    # deterministic cuDNN: finite, and the second run equals the first
+    t_part = time.perf_counter()
+    train_ds, _ = train_cli.resolve_datasets(cfg6)
+    dtype = train_cli.compute_dtype(cfg6.raw.get("tpu_config"))
+
+    def two_steps():
+        model = AudioDetectionModel.from_config(cfg6, 2, dtype=dtype,
+                                                generator=torch.Generator().manual_seed(11))
+        trainer = TrainerPipeline(model, train_cli.make_loss(cfg6, 2, train_ds.get_class_weights()),
+                                  tc["optimizer_config"], tc["lr_scheduler_config"],
+                                  model_path=os.path.join(train_tmp, "prng"), seed=42,
+                                  prng_impl="rbg", device=dev)
+        batch = next(iter(BatchLoader(train_ds, BATCH, shuffle=False, prefetch=0,
+                                      transfer_dtype="int16",
+                                      frame_fn=model.frontend.frame_host)))
+        x, t = trainer.put_batch(batch)
+        return trainer, torch.stack([trainer.train_step(x, t) for _ in range(2)]).cpu()
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        trainer, first = two_steps()
+        _, second = two_steps()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses = first[:, 0].tolist()
+    log(f"[train_prng] rbg: two steps at B={BATCH}, dropout {cfg6.raw['dropout']}, aggregate "
+        f"loss {losses}; a second run from the same seed equal bit for bit: "
+        f"{torch.equal(first, second)} (deterministic cuDNN) [{card}]")
+    checks.append(("train_prng rbg: finite, the trainer holds it",
+                   bool(torch.isfinite(first).all()) and trainer.prng_impl == "rbg"))
+    checks.append(("train_prng rbg: same seed, same steps", torch.equal(first, second)))
+    res["prng_losses"] = losses
+    res["prng_s"] = time.perf_counter() - t_part
+
+    # C. the int8 transfer gate on phase 6's saved model, card against
+    # --device cpu, on phase 6's eval split (annotated spans, each padded to
+    # the clip with zeros) and on the same split's full-length clips with
+    # their spans stretched to the whole clip: the mAPs, and every detection
+    # inside the audio. A row that reaches past the audio's end lies over a
+    # zero-padded tail, where the MFCC image is rounding noise that kernel 1
+    # and its plain version read differently (ROADMAP's deviations): those
+    # rows are counted, not held; a row inside the audio that misses the
+    # CPU's by more than 1e-3 s must have a twin within the gate's own
+    # tolerances
+    whole = os.path.join(train_tmp, "gate_whole")
+    os.makedirs(os.path.join(whole, "eval"))
+    with open(os.path.join(tc["dataset_path"], "annotations", "annotation.json")) as f:
+        ann = json.load(f)["annotations"][tc["annotator"]]
+    stretched = {}
+    for name in sorted(ann):
+        wav = os.path.join(tc["dataset_path"], "eval", f"{name}.wav")
+        segs = ann[name]
+        if not os.path.isfile(wav) or not segs or _wav_seconds(wav) < cfg6.sample_duration:
+            continue
+        keys = sorted(segs, key=lambda k: int(k.split("-")[-1]))
+        segs = {k: dict(v) for k, v in segs.items()}
+        segs[keys[0]]["start"], segs[keys[-1]]["end"] = 0.0, float(cfg6.sample_duration)
+        stretched[name] = segs
+        shutil.copy(wav, os.path.join(whole, "eval"))
+    os.makedirs(os.path.join(whole, "annotations"))
+    with open(os.path.join(whole, "annotations", "annotation.json"), "w") as f:
+        json.dump({"annotations": {tc["annotator"]: stretched}}, f)
+    # where each clip's audio ends on the padded split (the gate numbers its
+    # clips in the dataset's order); the whole split's clips have no tail
+    eval_ds = train_cli.make_dataset(os.path.join(tc["dataset_path"], "eval"), ann, cfg6)
+    audio_end = []
+    for i in range(len(eval_ds)):
+        wav, offset, count = eval_ds.audio_span(i)
+        rate, frames, _ = read_wav_info(wav)
+        audio_end.append(min(count, frames - offset) / rate)
+    audio_ends = {"padded": audio_end, "whole": [float("inf")] * len(stretched)}
+
+    def gate(dataset, device_args):
+        """The gate's JSON and each entry's detections."""
+        dets, real = {}, gate_int8_cli.summarize
+
+        def record(name, detections, *a, **k):
+            dets[name] = detections
+            return real(name, detections, *a, **k)
+
+        gate_int8_cli.summarize = record
+        try:
+            out = gate_int8_cli.main(["--config", train_yaml, "--dataset_path", dataset,
+                                      "--model_path", saved, "--class_map",
+                                      os.path.join(tc["class_map_path"], "class_map.json"),
+                                      *device_args])
+        finally:
+            gate_int8_cli.summarize = real
+        return out, dets
+
+    def by_clip(dets):
+        rows = {}
+        for fid, cls, conf, start, end in dets:
+            rows.setdefault(fid, []).append(dict(class_idx=cls, confidence=conf, start=start,
+                                                 end=end))
+        return rows
+
+    gate_read = {}
+    for split, dataset in (("padded", tc["dataset_path"]), ("whole", whole)):
+        zero()
+        t0 = time.perf_counter()
+        on_card, card_dets = gate(dataset, [])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = launches()
+        t0 = time.perf_counter()
+        on_cpu, cpu_dets = gate(dataset, ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        gap = max(abs(a[k] - b[k]) for a, b in zip(on_card["results"], on_cpu["results"])
+                  for k in a if k.startswith("mAP"))
+        rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                  for a, b in zip(on_card["results"], on_cpu["results"])
+                  for k in a if k.startswith("mAP"))
+        n = [(a["num_detections"], b["num_detections"])
+             for a, b in zip(on_card["results"], on_cpu["results"])]
+        m = e = 0
+        unexplained = []  # (entry, clip, side, row)
+        for entry in ("int16", "int8"):
+            a, b = by_clip(card_dets[entry]), by_clip(cpu_dets[entry])
+            for fid in sorted(set(a) | set(b)):
+                mm, ee, uu, _, _ = _compare_rows(a.get(fid, []), b.get(fid, []), 0.05, 0.1,
+                                                 cascade=True)
+                m, e = m + mm, e + ee
+                unexplained += [(entry, fid, "card" if any(r is q for q in a.get(fid, []))
+                                 else "cpu", r) for r in uu]
+        end = audio_ends[split]
+        tail = [u[3]["start"] - end[u[1]] for u in unexplained if u[3]["end"] > end[u[1]]]
+        inside = [u for u in unexplained if u[3]["end"] <= end[u[1]]]
+
+        def twin(u):
+            """A row of the other side for the same event within the gate's
+            own tolerances (``row_diff``: 0.05 s, 0.02 confidence)."""
+            return next((v for v in unexplained if v[:2] == u[:2] and v[2] != u[2]
+                         and v[3]["class_idx"] == u[3]["class_idx"]
+                         and abs(v[3]["start"] - u[3]["start"]) <= 0.05
+                         and abs(v[3]["end"] - u[3]["end"]) <= 0.05
+                         and abs(v[3]["confidence"] - u[3]["confidence"]) <= 0.02), None)
+
+        # a row inside the audio with such a twin: the same event, its box or
+        # confidence moved by the zeros through the model's receptive field
+        paired = [(u, twin(u)) for u in inside]
+        moved = [(u, v) for u, v in paired if v is not None]
+        lone = [u for u, v in paired if v is None]
+        moved_dt = max((max(abs(v[3]["start"] - u[3]["start"]), abs(v[3]["end"] - u[3]["end"]))
+                        for u, v in moved), default=0.0)
+        tails = sum(x < cfg6.sample_duration for x in end)
+        log(f"[gate] {split} split ({len(os.listdir(os.path.join(dataset, 'eval')))} clips): "
+            f"card {card_s:.1f} s: {json.dumps(on_card)}; launches {counts}")
+        log(f"[gate] {split} split: CPU {cpu_s:.1f} s: {json.dumps(on_cpu)}; largest mAP gap "
+            f"{gap:.3e} (bound {MAP_GAP_BOUND}); detections card/CPU per entry {n}; "
+            f"relative {rel:.3e} (bound {MAP_REL_GAP_BOUND}); {m} matched, {e} explained "
+            f"flips, {len(unexplained)} unexplained [{card}]")
+        log(f"[gate] {split} split: {tails} of {len(end)} clips end in zeros; unexplained rows "
+            f"over a zero-padded tail {len(tail)}"
+            + (f" (start minus the audio's end {min(tail):.2f} to {max(tail):.2f} s)" if tail
+               else "")
+            + f", inside the audio {len(inside)}: {len(moved)} with a twin on the other side "
+            f"(max |dt| {moved_dt:.3f} s), {len(lone)} without"
+            + "".join(f"; {en} clip {fid} {side}: class {r['class_idx']}, confidence "
+                      f"{r['confidence']:.4f}, {r['start']:.3f}-{r['end']:.3f} s, the audio "
+                      f"ends at {end[fid]:.3f} s" for en, fid, side, r in inside))
+        checks.append((f"gate {split}: card vs CPU mAP gap", gap <= MAP_GAP_BOUND))
+        checks.append((f"gate {split}: card vs CPU mAP gap relative to the CPU's",
+                       rel <= MAP_REL_GAP_BOUND))
+        checks.append((f"gate {split}: every row inside the audio is matched, a flip or a "
+                       "twin within the gate's tolerances", not lone and m > 0))
+        checks.append((f"gate {split}: kernel 2 launched", counts["greedy_suppress_blocked"] > 0))
+        gate_read[split] = dict(json=on_card, card_s=card_s, cpu_s=cpu_s, map_gap=gap,
+                                map_rel_gap=rel, detections=n, matched=m, explained=e,
+                                unexplained_over_tail=len(tail), moved_inside=len(moved),
+                                unexplained_inside=len(lone),
+                                launches=counts)
+    gate_counts = gate_read["padded"]["launches"]
+    res["gate"] = {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                   for k, v in gate_read.items()}
+
+    # D. dataset preparation: ten 60 s files at 16 kHz resampled to 22 050 Hz
+    # on the card and on the CPU; the same split and PCM16 within 1 LSB
+    src = os.path.join(train_tmp, "get_dataset", "src")
+    _raw_dataset(src, 10, cfg6.sample_duration, 16000, seed=3)
+    walls, dirs = {}, {}
+    for where in ("cuda", "cpu"):
+        root = os.path.join(train_tmp, "get_dataset", where)
+        shutil.copytree(src, root)
+        t0 = time.perf_counter()
+        get_dataset_cli.main(["--root", root, "--name", "openbmat", "--seed", "0",
+                              "--target_sample_rate", str(cfg6.sample_rate), "--device", where])
+        walls[where] = time.perf_counter() - t0
+        dirs[where] = os.path.join(root, "openbmat")
+    listing = {w: sorted(os.path.relpath(os.path.join(dp, n), d) for dp, _, names in os.walk(d)
+                         for n in names) for w, d in dirs.items()}
+    lsb, rates = 0.0, set()
+    for rel in (r for r in listing["cuda"] if r.endswith(".wav")):
+        a, ra = read_wav(os.path.join(dirs["cuda"], rel))
+        b, rb = read_wav(os.path.join(dirs["cpu"], rel))
+        rates |= {ra, rb}
+        assert a.shape == b.shape, rel
+        lsb = max(lsb, float(np.abs(a - b).max() * 32768.0))
+    log(f"[get_dataset] 10 files of {cfg6.sample_duration:g} s, 16000 -> {cfg6.sample_rate} Hz: "
+        f"card {walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s; listings equal "
+        f"{listing['cuda'] == listing['cpu']}; rates {sorted(rates)}; largest PCM16 difference "
+        f"{lsb:.0f} LSB [{card}]")
+    checks.append(("get_dataset: same split and files", listing["cuda"] == listing["cpu"]
+                   and sum(r.endswith(".wav") for r in listing["cuda"]) == 10))
+    checks.append(("get_dataset: resampled, within 1 LSB",
+                   rates == {cfg6.sample_rate} and lsb <= 1.0))
+    res.update(get_dataset_s=walls["cuda"], get_dataset_cpu_s=walls["cpu"], get_dataset_lsb=lsb)
+
+    res["serve_cli_launches"] = {k: serve_counts["waveform"][k] + serve_counts["framed"][k]
+                                 for k in serve_counts["framed"]}
+    res["gate_launches"] = gate_counts
+    res["seconds"] = time.perf_counter() - t_phase
+    failed = [w for w, held in checks if not held]
+    log(f"[last modules] phase 14 {res['seconds']:.1f} s; {len(checks) - len(failed)} of "
+        f"{len(checks)} checks hold" + (f"; failed: {failed}" if failed else ""))
+    assert not failed, failed
+    return res
+
+
 def _csv_tree(root):
     found = {}
     for d, _, names in os.walk(root):
@@ -3229,6 +3619,7 @@ def main() -> int:
         int8 = phase_int8(dev, card, tmp)
         postures = phase_train_postures(dev, card, tmp)
         rest = phase_port_rest(dev, card, tmp, postures)
+        last = phase_last_modules(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3245,7 +3636,9 @@ def main() -> int:
                     dp_launches=postures["dp_launches"][name],
                     export_launches=rest["export_launches"][name],
                     multi_launches=rest["multi_launches"][name],
-                    pool_launches=rest["pool_launches"][name])
+                    pool_launches=rest["pool_launches"][name],
+                    serve_cli_launches=last["serve_cli_launches"][name],
+                    gate_launches=last["gate_launches"][name])
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -3273,6 +3666,8 @@ def main() -> int:
     log(json.dumps({"train_postures": {k: v for k, v in postures.items()
                                        if not k.endswith("launches")}}))
     log(json.dumps({"port_rest": {k: v for k, v in rest.items() if not k.endswith("launches")}}))
+    log(json.dumps({"last_modules": {k: v for k, v in last.items()
+                                     if not k.endswith("launches")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -80,7 +80,7 @@ def test_reference_checkpoint_runs_in_the_port(tmp_path, block, seed):
     raw = _raw(block)
     tmodel, path = _reference_checkpoint(tmp_path, raw, seed)
     model = AudioDetectionModel.from_config(Config(raw), 2, branch_act=True)
-    model.load_state_dict(load_model_state(model, path))
+    model.load_state_dict(load_model_state(path, Config(raw), 2))
     model.eval()
     n_frames = Config(raw).n_frames
     feats = np.random.default_rng(seed + 100).standard_normal((3, 2, 32, n_frames)).astype(np.float32)

@@ -374,7 +374,7 @@ def test_serve_int8_calib_answers_a_request(tmp_path):
     wav = str(tmp_path / "a.wav")
     write_wav(wav, synth_clip(8000, 9.0, [(1.0, 3.0, "tone"), (5.0, 7.5, "beep")], seed=2), 8000)
     state = serve.build_app_state(str(cfg), state_dict=_train_form(model), device="cpu",
-                                  int8_calib=wav)
+                                  int8_calib=wav, framed_input=True)
     convs = [m for m in state["infer_fn"].model.modules() if isinstance(m, Conv2d)]
     assert sum(m.s_x is not None for m in convs) > 20
     assert state["frame_fn"].__name__ == "frame_host_int8"

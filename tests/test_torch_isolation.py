@@ -71,14 +71,18 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'audioyolo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "print(len([m for m in sys.modules if m.startswith('audioyolo_tpu_torch')]), bad)\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('audioyolo_tpu_torch')))\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) > 15
+    loaded = set(r.stdout.splitlines()[0].split())
+    assert len(loaded) > 15
+    assert {"audioyolo_tpu_torch.utils.logging", "audioyolo_tpu_torch.get_dataset_cli",
+            "audioyolo_tpu_torch.gate_int8_cli", "audioyolo_tpu_torch.serve"} <= loaded
 
 
 def test_entry_points_need_the_card_unless_asked(tiny_cfg):
@@ -87,7 +91,8 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
     import numpy as np
     import torch
 
-    from audioyolo_tpu_torch import evaluate_cli, export_cli, inference_cli, serve
+    from audioyolo_tpu_torch import (evaluate_cli, export_cli, gate_int8_cli, get_dataset_cli,
+                                     inference_cli, serve)
     from audioyolo_tpu_torch.config import Config
     from audioyolo_tpu_torch.device import resolve_device
     from audioyolo_tpu_torch.infer import make_inference_fn
@@ -133,6 +138,13 @@ def test_entry_points_need_the_card_unless_asked(tiny_cfg):
         make_multi_inference_fn(model, model.state_dict(), 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         export_cli.main(["--model_path", "model.pt", "--output", "model.aytx"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gate_int8_cli.main(["--dataset_path", ".", "--model_path", "model.pt",
+                            "--class_map", "class_map.json"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_dataset_cli.main(["--format_only", "--root", "."])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.app_state_from_args(serve.make_parser().parse_args([]))
     # the pool's workers build their models on the card and report why they cannot
     with workers_killed_after(), pytest.raises(RuntimeError, match="stream worker 0 failed.*CUDA"):
         inference_cli.main(["--workers", "2", "--model_path", "model.pt", "--audio_dir", "."])
