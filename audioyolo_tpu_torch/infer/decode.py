@@ -158,6 +158,7 @@ def make_multi_inference_fn(model, state_dict: Dict[str, torch.Tensor], n_batche
 
     infer.device = dev
     infer.graphs = graphs
+    infer.single = single  # one pass, eager: what a FLOP count can follow
     return infer
 
 

@@ -221,6 +221,7 @@ class MelKernelFrontend(nn.Module):
             raise ValueError(f"kernel 1 computes {N_MELS} mel bands, the config asks "
                              f"for {fb.shape[1]}")
         self.n_mels = fb.shape[1]
+        self.frame_len, self.n_spec = f, k2  # F and 2F' before padding
         fp, np_ = _round_up(f, K_TILE), _round_up(k2, N_TILE)
         if np_ > MAX_NP:
             raise ValueError(f"kernel 1 holds at most {MAX_NP // 2} frequency bins, the config "

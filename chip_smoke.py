@@ -18,8 +18,8 @@ Phases, each of which raises on failure:
    against the bound and the bf16 ``torch.matmul`` pair;
 4. kernels 2 and 3 (greedy interval NMS, chunked and row by row) against
    the plain version, bit for bit, on random, near-threshold, chained and
-   non-finite intervals at (32, 630), (1, 630), (3, 77), (2, 1024) and
-   (2, 2048); K above the kernels' limit must raise; each kernel's device
+   non-finite intervals at (32, 630), (256, 630), (8, 630), (1, 630),
+   (3, 77), (2, 1024) and (2, 2048); K above the kernels' limit must raise; each kernel's device
    time from a profiler trace (``ms``) beside the wrapper call's time on
    CUDA events (``call_ms``), at B=32 and B=1 and on the chain, and the
    launch floor (an empty kernel through the same ``ctypes`` route);
@@ -137,7 +137,21 @@ Phases, each of which raises on failure:
     resampled to 22 050 Hz on the card against the CPU; phase 6 has already
     read the metric plots (written, or one warning where matplotlib is
     missing);
-15. print one JSON line of every kernel's numbers (with each path's
+15. ``bench_cli``'s postures (``audioyolo_tpu_torch/bench_cli.py``, needs
+    no earlier phase's files): the headline posture (calibrated int8 body,
+    int8 DFT on ``(q, scale)`` frames, bf16 deploy model, 4 batches per CUDA
+    graph) at B=32 for BasicBlock [2,2,2,2] and Bottleneck [3,4,6,3], each
+    timed by ``bench_batched``, one replay of the timed graph held to four
+    eager passes on its inputs bit for bit, every conv outside
+    ``DEFAULT_EXCLUDE`` quantized, and a replay at B=2 held to the CPU on
+    the same weights, scales and inputs (dense predictions and detections);
+    kernel 1 at B=256 in the 4-forward graph under ``frontend="default"``,
+    a replay held to eager bit for bit and kernel 1's output on the batch's
+    first and last clip against the plain version; the training posture (int8
+    frontend, bf16 body, EMA, ``rbg`` masks) at B=32, S=2, the graph
+    against eager steps bit for bit under deterministic cuDNN; every line
+    ``_emit`` prints parses, its numbers finite;
+16. print one JSON line of every kernel's numbers (with each path's
     launches), then the device line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -467,7 +481,10 @@ def phase_nms(dev, card):
 
     fns = (greedy_suppress_blocked, greedy_suppress_unblocked)
     checked, max_err = 0, 0
-    for b, k in ((BATCH, 630), (1, 630), (3, 77), (2, 1024), (2, K_MAX)):
+    # (256, 630) and (8, 630): the bench's B=256 postures and the streaming
+    # pool's batch of 8
+    for b, k in ((BATCH, 630), (256, 630), (8, 630), (1, 630), (3, 77), (2, 1024),
+                 (2, K_MAX)):
         cases = _nms_cases(b, k, seed=1 + k + b)
         for thr in (0.1, 0.45):
             near = _near_threshold(thr, k)
@@ -483,7 +500,7 @@ def phase_nms(dev, card):
                     checked += 1
     log(f"[kernels 2, 3] bit-identical to the plain version in {checked} cases (random, "
         f"near-threshold +-1 ulp, chain, NaN and inf bounds; thresholds 0.1 and 0.45; "
-        f"{BATCH}x630, 1x630, 3x77, 2x1024, 2x{K_MAX})")
+        f"{BATCH}x630, 256x630, 8x630, 1x630, 3x77, 2x1024, 2x{K_MAX})")
     over = torch.zeros((1, K_MAX + 1), device=dev)
     for fn in fns:
         before = fn.launches
@@ -1696,6 +1713,22 @@ def _packed_rows(packed):
     return out
 
 
+def _matched(ref_rows, rows):
+    """(matched, of, largest confidence gap): ``ref_rows``'s detections that
+    find one of their class in ``rows`` with the center within
+    BF16_ROW_TOL_S and the width within BF16_WIDTH_REL (``_packed_rows``)."""
+    hit, n, gap = 0, 0, 0.0
+    for a, b in zip(ref_rows, rows):
+        for conf, cls, c, w in a:
+            n += 1
+            m = [r for r in b if r[1] == cls and abs(r[2] - c) <= BF16_ROW_TOL_S
+                 and abs(r[3] - w) <= BF16_WIDTH_REL * w]
+            if m:
+                hit += 1
+                gap = max(gap, min(abs(r[0] - conf) for r in m))
+    return hit, n, gap
+
+
 def phase_bf16_serving(dev, card):
     """Phase 9: the bf16 body through ``make_inference_fn`` at B=32, against
     the float32 body on the card and against bf16 on the CPU."""
@@ -1740,15 +1773,7 @@ def phase_bf16_serving(dev, card):
         p = {k: fns[k].model(x, combine_scales=True).float().cpu() for k in fns}
     gap_card = _rel_gap(p["bf16"], p["f32"])
     rows = {k: _packed_rows(packed[k]) for k in packed}
-    n_f32 = sum(map(len, rows["f32"]))
-    hit, conf_gap = 0, 0.0
-    for a, b in zip(rows["f32"], rows["bf16"]):
-        for conf, cls, c, w in a:
-            m = [q for q in b if q[1] == cls and abs(q[2] - c) <= BF16_ROW_TOL_S
-                 and abs(q[3] - w) <= BF16_WIDTH_REL * w]
-            if m:
-                hit += 1
-                conf_gap = max(conf_gap, min(abs(q[0] - conf) for q in m))
+    hit, n_f32, conf_gap = _matched(rows["f32"], rows["bf16"])
     share = hit / max(n_f32, 1)
     log(f"[bf16 serving] bf16 vs float32 on the card, {BATCH} clips: predictions |diff| / "
         f"max|value| median {gap_card[0]:.3e}, p99 {gap_card[1]:.3e} (bound {BF16_PRED_P99}); "
@@ -2062,15 +2087,7 @@ def phase_int8(dev, card, train_tmp):
         p = {k: fns[k].model(fd, combine_scales=True).float().cpu() for k in ("f32", "int8")}
     gap = _rel_gap(p["int8"], p["f32"])
     prow = {k: _packed_rows(v) for k, v in packed.items()}
-    n_f32 = sum(map(len, prow["f32"]))
-    hit, conf_gap = 0, 0.0
-    for a, b in zip(prow["f32"], prow["int8"]):
-        for conf, cls, c, w in a:
-            m = [r for r in b if r[1] == cls and abs(r[2] - c) <= BF16_ROW_TOL_S
-                 and abs(r[3] - w) <= BF16_WIDTH_REL * w]
-            if m:
-                hit += 1
-                conf_gap = max(conf_gap, min(abs(r[0] - conf) for r in m))
+    hit, n_f32, conf_gap = _matched(prow["f32"], prow["int8"])
     share = hit / max(n_f32, 1)
     log(f"[int8 body] int8 vs float32 on the card, {BATCH} clips: predictions median "
         f"{gap[0]:.3e}, p99 {gap[1]:.3e} (bound {INT8_PRED_P99}); {hit} of {n_f32} float32 "
@@ -3577,6 +3594,258 @@ def phase_last_modules(dev, card, train_tmp):
     return res
 
 
+# phase 15: bench_cli's postures. The headline's card vs CPU check reads as
+# phase 11 reads the int8 body: the dense predictions within 2x the card's
+# int8-vs-bf16 gap on the same features, the detections at INT8_ROW_SHARE
+# and INT8_CONF_GAP (the match tolerances of phase 9). A replay of a timed
+# graph equals eager passes on its inputs bit for bit (the same kernels on
+# the same card; phase 13 found so). Kernel 1 at B=256 reads as phase 3
+# reads it (MEL_REL_BOUND), on the first and the last clip of the batch.
+BENCH_N = 4
+BENCH_KERNEL1_BATCH = 256
+BENCH_SCALED = ("Bottleneck", (3, 4, 6, 3))
+
+
+def _emitted(*args, **kwargs):
+    """Call ``bench_cli._emit``: its printed line, parsed, must equal what it
+    returns and hold finite numbers; the line goes to the log."""
+    import contextlib
+    import io
+    import math
+
+    from audioyolo_tpu_torch import bench_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = bench_cli._emit(*args, **kwargs)
+    text = buf.getvalue().strip()
+    parsed = json.loads(text)
+    ok = (parsed == line and "\n" not in text and all(
+        math.isfinite(v) for v in parsed.values() if isinstance(v, (int, float))))
+    log(f"[bench] {text}")
+    return parsed, ok
+
+
+def phase_bench(dev, card):
+    """Phase 15: ``bench_cli``'s own builders on the card (needs no earlier
+    phase's files): the headline posture (int8 body, int8 DFT, bf16 deploy
+    model, 4 batches per CUDA graph) at B=32 for BasicBlock [2,2,2,2] and
+    Bottleneck [3,4,6,3], each timed graph's replay held to eager passes,
+    and a replay at B=2 held to the CPU on the same weights, scales and
+    inputs; kernel 1 at B=256 in the 4-forward graph under
+    ``frontend="default"`` (a replay against eager, kernel 1's output on the
+    first and last clip against the plain version); the training posture
+    (int8 frontend, bf16 body, EMA, ``rbg`` masks) at B=32, S=2: the graph
+    against eager steps bit for bit under deterministic cuDNN; every line
+    ``_emit`` prints parses."""
+    import copy
+
+    import torch
+
+    from audioyolo_tpu_torch import bench_cli
+    from audioyolo_tpu_torch.config import load_config
+    from audioyolo_tpu_torch.infer.decode import make_inference_fn, pack_detections
+    from audioyolo_tpu_torch.models.layers import Conv2d
+    from audioyolo_tpu_torch.models.quant import DEFAULT_EXCLUDE, set_quant
+    from audioyolo_tpu_torch.ops.cuda_graph import COUNTERS
+    from audioyolo_tpu_torch.ops.mel_kernel import fused_mel_power, fused_mel_power_plain
+
+    checks, res = [], {}
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "config", "config.yaml"))
+    bench_launches = {c.__name__: 0 for c in COUNTERS}
+
+    def zero():
+        for c in COUNTERS:
+            c.launches = 0
+
+    def add_launches():
+        for c in COUNTERS:
+            bench_launches[c.__name__] += c.launches
+        return {c.__name__: c.launches for c in COUNTERS}
+
+    def pack(out):
+        return pack_detections(out) if isinstance(out, dict) else out
+
+    def replay_vs_eager(infer, inputs):
+        """One replay of ``inputs``' graph against one eager pass of each:
+        (bit-equal, largest |diff| of the packed rows)."""
+        zero()
+        replay = [pack(o) for o in infer(inputs)]
+        eager = [pack(infer.single(a)) for a in inputs]
+        torch.cuda.synchronize(dev)
+        add_launches()
+        diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(replay, eager))
+        return all(torch.equal(a, b) for a, b in zip(replay, eager)), diff
+
+    # (a) the headline posture at B=32 for both backbones, card vs CPU at B=2
+    for name, block, layers in (("BasicBlock [2,2,2,2]", None, None),
+                                (f"{BENCH_SCALED[0]} {list(BENCH_SCALED[1])}",) + BENCH_SCALED):
+        t_part = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        infer, frame_fn, _ = bench_cli._build_infer(cfg, block, layers, n_dispatch=BENCH_N,
+                                                    int8=True, frontend="int8", device=dev)
+        build_s = time.perf_counter() - t_part
+        zero()
+        thr, cost = bench_cli.bench_batched(cfg, infer, frame_fn, batch=BATCH, n_dispatch=BENCH_N,
+                                            with_cost=True)
+        counts = add_launches()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        metric = ("audio_seconds_per_sec_per_chip" if block is None
+                  else "scaled_backbone_audio_seconds_per_sec")
+        _, parsed = _emitted(metric, thr, "audio-s/s", body="int8", frontend="int8", **cost)
+        checks.append((f"{name}: the emitted line parses, finite", parsed))
+        dispatches = bench_cli.WARMUP + bench_cli.T1_SAMPLES + bench_cli.ITERS + 2
+        checks.append((f"{name}: kernel 2 once per forward, kernel 1 never (int8 DFT)",
+                       counts["greedy_suppress_blocked"] == BENCH_N * (dispatches + 1)
+                       and counts["fused_mel_power"] == 0))
+        # the timed graph: bench_batched's inputs, regenerated from their seeds
+        timed = [bench_cli._bench_input(cfg, frame_fn, BATCH, i, dev) for i in range(BENCH_N)]
+        same, diff = replay_vs_eager(infer, timed)
+        checks.append((f"{name}: a replay of the timed B={BATCH} graph = eager bit for bit", same))
+        del timed
+        model = infer.single.model
+        convs = {n: m for n, m in model.named_modules() if isinstance(m, Conv2d)}
+        n_int8 = sum(m.s_x is not None for m in convs.values())
+        n_want = sum(not any(e in n + "." for e in DEFAULT_EXCLUDE) for n in convs)
+        checks.append((f"{name}: every conv outside DEFAULT_EXCLUDE runs int8",
+                       n_int8 == n_want > 0))
+        small = [bench_cli._bench_input(cfg, frame_fn, 2, 100 + i, dev) for i in range(BENCH_N)]
+        zero()
+        infer(small)  # the B=2 signature's first call: eager, then the capture
+        card_out = [pack(o).cpu() for o in infer(small)]  # its replay
+        add_launches()
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_fn = make_inference_fn(cpu_model, cpu_model.state_dict(), 0.1, 0.2, 128,
+                                   packed=True, device="cpu")
+        bf16_model = set_quant(copy.deepcopy(model), {})
+        t0 = time.perf_counter()
+        pairs, preds = [], {"card": [], "cpu": [], "bf16": []}
+        for i in (0, BENCH_N - 1):  # the first and the last of the graph's inputs
+            pairs.append((card_out[i], cpu_fn(tuple(t.cpu() for t in small[i]))))
+            with torch.inference_mode():  # the same features through the three bodies
+                feats = model.frontend(small[i])
+                preds["card"].append(model(features=feats, combine_scales=True).float().cpu())
+                preds["cpu"].append(cpu_model(features=feats.cpu(), combine_scales=True).float())
+                preds["bf16"].append(bf16_model(features=feats, combine_scales=True).float().cpu())
+        preds = {k: torch.cat(v) for k, v in preds.items()}
+        dense, yard = _rel_gap(preds["card"], preds["cpu"]), _rel_gap(preds["card"], preds["bf16"])
+        cpu_s = time.perf_counter() - t0
+        hit = n = 0
+        gap = 0.0
+        for card_p, cpu_p in pairs:
+            h, k, g = _matched(_packed_rows(cpu_p), _packed_rows(card_p))
+            hit, n, gap = hit + h, n + k, max(gap, g)
+        share = hit / max(n, 1)
+        log(f"[bench] {name}: int8 body ({n_int8} of {len(convs)} convs, {n_want} outside "
+            f"DEFAULT_EXCLUDE) + int8 DFT, bf16 deploy model, {BENCH_N} x B={BATCH} in one "
+            f"graph: {thr:.1f} audio-s/s, {cost}; launches {counts}; peak memory {peak:.3f} GiB; "
+            f"build {build_s:.1f} s; a replay of the timed graph = 4 eager passes bit for bit "
+            f"{same} (largest |diff| {diff:.3e}); card (a replay) vs CPU at B=2 (inputs 0 and "
+            f"{BENCH_N - 1}): dense predictions median {dense[0]:.3e}, p99 {dense[1]:.3e}, bound "
+            f"2x the card's int8-vs-bf16 gap (median {yard[0]:.3e}, p99 {yard[1]:.3e}); {hit} of "
+            f"{n} CPU detections matched ({share:.4f}, bound {INT8_ROW_SHARE}), largest "
+            f"confidence gap {gap:.3e} (bound {INT8_CONF_GAP}); CPU {cpu_s:.1f} s [{card}]")
+        checks.append((f"{name}: card vs CPU dense predictions", dense[0] <= 2 * yard[0]
+                       and dense[1] <= 2 * yard[1]))
+        checks.append((f"{name}: card vs CPU detections", n > 0 and share >= INT8_ROW_SHARE
+                       and gap <= INT8_CONF_GAP and all(torch.isfinite(p).all() for p in card_out)))
+        res[name] = dict(audio_s_per_s=thr, **cost, peak_gib=peak, replay_equal=same,
+                         dense_cpu=dense, dense_int8_bf16=yard, matched=hit, detections=n,
+                         conf_gap=gap, int8_convs=n_int8, launches=counts)
+        del infer, model, cpu_model, cpu_fn, bf16_model, small, card_out, pairs, feats, preds
+        bench_cli._release(dev)
+
+    # (b) kernel 1 at B=256 in the 4-forward graph, frontend "default"
+    t_part = time.perf_counter()
+    kcfg = _serving_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    infer, frame_fn, _ = bench_cli._build_infer(kcfg, n_dispatch=BENCH_N, frontend="default",
+                                                device=dev)
+    zero()
+    thr, cost = bench_cli.bench_batched(kcfg, infer, frame_fn, batch=BENCH_KERNEL1_BATCH,
+                                        n_dispatch=BENCH_N, with_cost=True)
+    counts = add_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _, parsed = _emitted("audio_seconds_per_sec_per_chip", thr, "audio-s/s", body="bf16",
+                         frontend="default", **cost)
+    checks.append(("kernel 1 posture: the emitted line parses, finite", parsed))
+    dispatches = bench_cli.WARMUP + bench_cli.T1_SAMPLES + bench_cli.ITERS + 2
+    checks.append(("kernel 1 posture: kernels 1 and 2 once per forward",
+                   counts["fused_mel_power"] == BENCH_N * (dispatches + 1)
+                   and counts["greedy_suppress_blocked"] == BENCH_N * (dispatches + 1)))
+    timed = [bench_cli._bench_input(kcfg, frame_fn, BENCH_KERNEL1_BATCH, i, dev)
+             for i in range(BENCH_N)]
+    same, diff = replay_vs_eager(infer, timed)
+    checks.append((f"kernel 1 posture: a replay of the timed B={BENCH_KERNEL1_BATCH} graph = "
+                   "eager bit for bit", same))
+    x = timed[0]  # dispatch input 0
+    del timed
+    mk = infer.single.model.frontend.fused_kernel
+    with torch.inference_mode():
+        out = fused_mel_power(x, mk.ct, mk.mel2t)
+        idx = torch.tensor([0, BENCH_KERNEL1_BATCH - 1], device=dev)
+        ref = fused_mel_power_plain(x[idx], mk.ct, mk.mel2t)
+    err = (out[idx] - ref).abs()
+    rel = (err / (ref.abs() + 1e-3)).max().item()
+    ok = (out.shape[0] == BENCH_KERNEL1_BATCH and bool(torch.isfinite(out).all())
+          and rel < MEL_REL_BOUND)
+    log(f"[bench] kernel 1 posture (frontend default, bf16 body): {BENCH_N} x "
+        f"B={BENCH_KERNEL1_BATCH} float32 frames in one graph: {thr:.1f} audio-s/s, {cost}; "
+        f"launches {counts}; peak memory {peak:.3f} GiB; a replay of the timed graph = 4 eager "
+        f"passes bit for bit {same} (largest |diff| {diff:.3e}); kernel 1 at "
+        f"B={BENCH_KERNEL1_BATCH} ({BENCH_KERNEL1_BATCH * x.shape[1] * x.shape[2]} frames of "
+        f"{x.shape[3]} samples), clips 0 and {BENCH_KERNEL1_BATCH - 1} against the plain "
+        f"version: max |err| {err.max().item():.3e}, rel {rel:.3e} (bound {MEL_REL_BOUND}); "
+        f"{time.perf_counter() - t_part:.1f} s [{card}]")
+    checks.append((f"kernel 1 at B={BENCH_KERNEL1_BATCH} against its plain version", ok))
+    res["kernel1_b256"] = dict(audio_s_per_s=thr, **cost, peak_gib=peak, replay_equal=same,
+                               max_abs_err=err.max().item(), max_rel_err=rel, launches=counts)
+    del infer, x, out, ref, mk
+    bench_cli._release(dev)
+
+    # (c) the training posture at B=32, S=2: graph against eager, bit for bit
+    t_part = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph, g_batches, _ = bench_cli._build_train(cfg, batch=BATCH, steps=2, device=dev)
+        eager, e_batches, _ = bench_cli._build_train(cfg, batch=BATCH, steps=2, device=dev)
+        int8_fe = graph.model.frontend.fused_int8 and isinstance(g_batches[0][0], tuple)
+        zero()
+        rows_g = torch.cat([graph.train_steps(g_batches), graph.train_steps(g_batches)])
+        rows_e = torch.stack([eager.train_step(a, t) for _ in range(2) for a, t in e_batches])
+        torch.cuda.synchronize(dev)
+        counts = add_launches()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    params = dict(graph.model.named_parameters())
+    same_params = all(torch.equal(p, params[k]) for k, p in eager.model.named_parameters())
+    same_ema = all(torch.equal(p, graph.ema.params[k]) for k, p in eager.ema.params.items())
+    same_rows = torch.equal(rows_g, rows_e)
+    log(f"[bench] training posture (int8 frontend {int8_fe}, bf16 body, EMA, rbg masks) B={BATCH} "
+        f"S=2: {len(graph._graphs)} graph(s); losses graph "
+        f"{', '.join(f'{v:.6f}' for v in rows_g[:, 0].tolist())}, eager "
+        f"{', '.join(f'{v:.6f}' for v in rows_e[:, 0].tolist())}; metrics equal {same_rows}, "
+        f"parameters equal {same_params}, EMA equal {same_ema} (deterministic cuDNN); steps "
+        f"{graph.step} / {eager.step}; launches {counts}; {time.perf_counter() - t_part:.1f} s "
+        f"[{card}]")
+    checks.append(("training posture: graph = eager bit for bit", int8_fe and same_rows
+                   and same_params and same_ema and len(graph._graphs) == 1
+                   and graph.step == eager.step == 4
+                   and bool(torch.isfinite(rows_g[:, 0]).all())))
+    res["train_graph_equal"] = same_rows and same_params and same_ema
+    del graph, eager, g_batches, e_batches
+    bench_cli._release(dev)
+
+    res["bench_launches"] = bench_launches
+    res["seconds"] = time.perf_counter() - t_phase
+    failed = [w for w, held in checks if not held]
+    log(f"[bench] phase 15 {res['seconds']:.1f} s; {len(checks) - len(failed)} of "
+        f"{len(checks)} checks hold" + (f"; failed: {failed}" if failed else ""))
+    assert not failed, failed
+    return res
+
+
 def _csv_tree(root):
     found = {}
     for d, _, names in os.walk(root):
@@ -3622,6 +3891,7 @@ def main() -> int:
         last = phase_last_modules(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    bench = phase_bench(dev, card)
 
     src = "audioyolo_tpu_torch/csrc/"
 
@@ -3638,7 +3908,8 @@ def main() -> int:
                     multi_launches=rest["multi_launches"][name],
                     pool_launches=rest["pool_launches"][name],
                     serve_cli_launches=last["serve_cli_launches"][name],
-                    gate_launches=last["gate_launches"][name])
+                    gate_launches=last["gate_launches"][name],
+                    bench_launches=bench["bench_launches"][name])
 
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
@@ -3668,6 +3939,7 @@ def main() -> int:
     log(json.dumps({"port_rest": {k: v for k, v in rest.items() if not k.endswith("launches")}}))
     log(json.dumps({"last_modules": {k: v for k, v in last.items()
                                      if not k.endswith("launches")}}))
+    log(json.dumps({"bench": {k: v for k, v in bench.items() if k != "bench_launches"}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
