@@ -25,6 +25,14 @@ the default stream, which orders the copy before the forward that reads it.
 No host buffer is reused while its copy is in flight: PyTorch's caching host
 allocator hands a freed pinned block out again only after the copies
 recorded on it have completed.
+
+Spans (``utils/trace.py``, recorded only under a profiler): on the producer
+thread ``ayt.stream.read`` (a window or chunk read), ``ayt.stream.stack``
+(a batch stacked and padded) and ``ayt.stream.pin`` (the fresh pinned host
+memory filled; the copy's enqueue stays outside); on the dispatching thread
+``ayt.stream.wait_input`` (blocked on the producer), ``ayt.stream.wait_device``
+(blocked on a batch's results) and ``ayt.stream.drain`` (rows and CSVs
+after the fetch). None encloses a launch or a copy.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 from ..data import native
 from ..data.wavio import read_wav, read_wav_info, read_wav_pcm16_mono
 from ..ops.resample import Resampler
+from ..utils.trace import span
 from .decode import postprocess_detections, unpack_detections
 
 
@@ -140,7 +149,8 @@ def _prefetch_iter(gen: Iterator, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("ayt.stream.wait_input"):
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]
@@ -169,7 +179,13 @@ def rle_merge(rows: List[dict]) -> List[dict]:
 
 
 def _fetch(out) -> Dict[str, np.ndarray]:
-    """One device->host copy of a packed (B, K, 6) tensor or a detection dict."""
+    """One device->host copy of a packed (B, K, 6) tensor or a detection dict,
+    after a wait for the device's stream that launches nothing (so its span
+    owns no device work; the copy then finds the results ready)."""
+    first = next(iter(out.values())) if isinstance(out, dict) else out
+    with span("ayt.stream.wait_device"):
+        if first.device.type == "cuda":
+            torch.cuda.current_stream(first.device).synchronize()
     if isinstance(out, dict):
         return {k: v.cpu().numpy() for k, v in out.items()}
     return unpack_detections(out.cpu().numpy())
@@ -185,7 +201,9 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
     if device.type != "cuda":
         return t
-    return t.pin_memory().to(device, non_blocking=True)
+    with span("ayt.stream.pin"):
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def _pinned_fill(fill: Callable, device: torch.device):
@@ -203,7 +221,8 @@ def _pinned_fill(fill: Callable, device: torch.device):
         pinned.append(torch.empty(shape, dtype=_TORCH_DTYPES[np.dtype(dtype)], pin_memory=True))
         return pinned[-1].numpy()
 
-    out = fill(alloc)
+    with span("ayt.stream.pin"):
+        out = fill(alloc)
     big = pinned[0].to(device, non_blocking=True)
     if isinstance(out, tuple):
         return (big,) + tuple(_to_device(a, device) for a in out[1:])
@@ -284,13 +303,14 @@ def evaluate_audio(
     def read_chunk_mono(start_frame: int):
         """(samples_1d, dtype): int16 for mono PCM16 files, float32 otherwise."""
         nf = min(chunk_frames, end_frame - start_frame)
-        raw = read_wav_pcm16_mono(audio_filepath, frame_offset=start_frame, num_frames=nf)
-        if raw is not None:
-            return raw, np.int16
-        audio, _ = read_wav(audio_filepath, frame_offset=start_frame, num_frames=nf)
-        if audio.shape[0] != 1:
-            audio = audio.mean(axis=0, keepdims=True)
-        return audio[0], np.float32
+        with span("ayt.stream.read"):
+            raw = read_wav_pcm16_mono(audio_filepath, frame_offset=start_frame, num_frames=nf)
+            if raw is not None:
+                return raw, np.int16
+            audio, _ = read_wav(audio_filepath, frame_offset=start_frame, num_frames=nf)
+            if audio.shape[0] != 1:
+                audio = audio.mean(axis=0, keepdims=True)
+            return audio[0], np.float32
 
     @torch.no_grad()
     def chunk_inputs():
@@ -302,13 +322,14 @@ def evaluate_audio(
                 return
             n = samples.shape[-1]
             nclips = math.ceil(n / sample_size)
-            pad = nclips * sample_size - n
-            if pad:
-                samples = np.pad(samples, (0, pad))
-            clips = samples.reshape(nclips, 1, sample_size)
-            if nclips < batch_size:  # one static batch shape
-                clips = np.concatenate(
-                    [clips, np.zeros((batch_size - nclips, 1, sample_size), dtype)], axis=0)
+            with span("ayt.stream.stack"):
+                pad = nclips * sample_size - n
+                if pad:
+                    samples = np.pad(samples, (0, pad))
+                clips = samples.reshape(nclips, 1, sample_size)
+                if nclips < batch_size:  # one static batch shape
+                    clips = np.concatenate(
+                        [clips, np.zeros((batch_size - nclips, 1, sample_size), dtype)], axis=0)
             start_frame += chunk_frames
             if frame_fn is not None and resampler is None:
                 yield nclips, _frames_to_device(frame_fn, clips[:, 0, :], device, transfer)
@@ -332,12 +353,14 @@ def evaluate_audio(
 
     def drain(nclips: int, out) -> None:
         nonlocal clip_offset
-        per_clip = postprocess_detections(_fetch(out), sample_duration, return_start_end=True)
-        for ci in range(nclips):  # padded clips are dropped here
-            base = (clip_offset + ci) * sample_duration
-            for conf, obj, cls, start, end in per_clip[ci]:
-                all_rows.append({"confidence": conf, "objectness": obj, "class_idx": cls,
-                                 "start": base + start, "end": base + end})
+        dets = _fetch(out)
+        with span("ayt.stream.drain"):
+            per_clip = postprocess_detections(dets, sample_duration, return_start_end=True)
+            for ci in range(nclips):  # padded clips are dropped here
+                base = (clip_offset + ci) * sample_duration
+                for conf, obj, cls, start, end in per_clip[ci]:
+                    all_rows.append({"confidence": conf, "objectness": obj, "class_idx": cls,
+                                     "start": base + start, "end": base + end})
         clip_offset += nclips
 
     pending = None
@@ -362,14 +385,15 @@ def _iter_windows(path: str, sample_size: int, total_frames: int):
     start, clip = 0, 0
     while start < total_frames:
         n = min(sample_size, total_frames - start)
-        raw = read_wav_pcm16_mono(path, frame_offset=start, num_frames=n)
-        if raw is None:
-            audio, _ = read_wav(path, frame_offset=start, num_frames=n)
-            if audio.shape[0] != 1:
-                audio = audio.mean(axis=0, keepdims=True)
-            raw = audio[0].astype(np.float32)
-        if raw.shape[-1] < sample_size:
-            raw = np.pad(raw, (0, sample_size - raw.shape[-1]))
+        with span("ayt.stream.read"):
+            raw = read_wav_pcm16_mono(path, frame_offset=start, num_frames=n)
+            if raw is None:
+                audio, _ = read_wav(path, frame_offset=start, num_frames=n)
+                if audio.shape[0] != 1:
+                    audio = audio.mean(axis=0, keepdims=True)
+                raw = audio[0].astype(np.float32)
+            if raw.shape[-1] < sample_size:
+                raw = np.pad(raw, (0, sample_size - raw.shape[-1]))
         yield clip, raw
         clip += 1
         start += sample_size
@@ -424,18 +448,19 @@ def evaluate_files_batched(
             yield from ((fi, clip, w) for clip, w in _iter_windows(path, sample_size, total))
 
     def to_device(wins: List[np.ndarray]):
-        if all(w.dtype == np.int16 for w in wins):
-            arr = np.stack(wins)
-        else:  # mixed sources: promote, scaling PCM16 exactly like the readers
-            arr = np.stack([
-                w.astype(np.float32) * (1.0 / 32768.0) if w.dtype == np.int16
-                else w.astype(np.float32)
-                for w in wins
-            ])
-        n = arr.shape[0]
-        if n < batch_size:
-            arr = np.concatenate(
-                [arr, np.zeros((batch_size - n,) + arr.shape[1:], arr.dtype)], axis=0)
+        with span("ayt.stream.stack"):
+            if all(w.dtype == np.int16 for w in wins):
+                arr = np.stack(wins)
+            else:  # mixed sources: promote, scaling PCM16 exactly like the readers
+                arr = np.stack([
+                    w.astype(np.float32) * (1.0 / 32768.0) if w.dtype == np.int16
+                    else w.astype(np.float32)
+                    for w in wins
+                ])
+            n = arr.shape[0]
+            if n < batch_size:
+                arr = np.concatenate(
+                    [arr, np.zeros((batch_size - n,) + arr.shape[1:], arr.dtype)], axis=0)
         if frame_fn is not None:
             return _frames_to_device(frame_fn, arr, device, transfer)
         if transfer == "int8":
@@ -454,16 +479,18 @@ def evaluate_files_batched(
             yield metas, to_device(wins)
 
     def drain(metas, out):
-        per_clip = postprocess_detections(_fetch(out), sample_duration, return_start_end=True)
-        for i, (fi, clip) in enumerate(metas):
-            base = clip * sample_duration
-            for conf, obj, cls, start, end in per_clip[i]:
-                per_file_rows[fi].append({"confidence": conf, "objectness": obj,
-                                          "class_idx": cls, "start": base + start,
-                                          "end": base + end})
-            remaining[fi] -= 1
-            if remaining[fi] == 0:
-                finish_file(fi)
+        dets = _fetch(out)
+        with span("ayt.stream.drain"):
+            per_clip = postprocess_detections(dets, sample_duration, return_start_end=True)
+            for i, (fi, clip) in enumerate(metas):
+                base = clip * sample_duration
+                for conf, obj, cls, start, end in per_clip[i]:
+                    per_file_rows[fi].append({"confidence": conf, "objectness": obj,
+                                              "class_idx": cls, "start": base + start,
+                                              "end": base + end})
+                remaining[fi] -= 1
+                if remaining[fi] == 0:
+                    finish_file(fi)
 
     pending = None
     for metas, x in _prefetch_iter(batches()):
