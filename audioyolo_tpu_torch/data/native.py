@@ -12,7 +12,7 @@ function is bit-identical to the numpy path it replaces (``data/wavio.py``,
 - :func:`load_batch`, :func:`load_batch_i16`: N spans decoded on C++
   threads into one contiguous (N, out_len) float32 or int16 buffer (int16 is
   ``round(x * 32768)`` clipped, the loader's quantization; mono PCM16 is
-  read as it is);
+  read as it is), int16 optionally into a caller's buffer (a pinned tensor);
 - :func:`frame_i16`: an in-memory int16 batch into the fused frontend's
   phase-grouped frames, optionally into a caller's buffer (a pinned tensor);
 - :func:`load_batch_framed_i16`: N spans decoded straight into those frames;
@@ -118,10 +118,17 @@ def load_batch(paths: Sequence[str], frame_offsets: Sequence[int], num_frames: S
 
 
 def load_batch_i16(paths: Sequence[str], frame_offsets: Sequence[int],
-                   num_frames: Sequence[int], out_len: int, n_threads: int = 4) -> np.ndarray:
-    """N spans decoded to raw int16 waveforms (N, out_len)."""
+                   num_frames: Sequence[int], out_len: int, n_threads: int = 4,
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
+    """N spans decoded to raw int16 waveforms (N, out_len), written into
+    ``out`` when given (a pinned tensor's array)."""
     n, c_paths, offs, cnts = _spans(paths, frame_offsets, num_frames)
-    out = np.empty((n, out_len), np.int16)
+    if out is None:
+        out = np.empty((n, out_len), np.int16)
+    elif (out.shape != (n, out_len) or out.dtype != np.int16 or not out.flags.c_contiguous
+          or not out.flags.writeable):
+        raise ValueError(f"out must be a writeable C-contiguous int16 array of shape "
+                         f"{(n, out_len)}, got {out.dtype} {out.shape}")
     _check(library().ayt_load_batch_i16(c_paths, n, _ptr(offs, ctypes.c_int64),
                                         _ptr(cnts, ctypes.c_int64), _ptr(out, ctypes.c_int16),
                                         out_len, n_threads), "int16 batch load")

@@ -56,6 +56,18 @@ def read_wav_info(path: str) -> Tuple[int, int, int]:
         return rate, data_size // frame_bytes, channels
 
 
+def is_pcm16_mono(path: str) -> bool:
+    """True for a mono PCM16 file whose data chunk holds every byte its
+    header states: one whose spans the native int16 loader
+    (``data/native.py::load_batch_i16``) reads as :func:`read_wav_pcm16_mono`
+    reads them. A shorter data chunk gives False (that loader would fail
+    where this reader zero-pads)."""
+    with open(path, "rb") as f:
+        audio_format, channels, _, bits, data_off, data_size = _parse_header(f)
+        return (audio_format == WAVE_FORMAT_PCM and bits == 16 and channels == 1
+                and os.fstat(f.fileno()).st_size >= data_off + data_size)
+
+
 def read_wav_pcm16_mono(
     path: str, frame_offset: int = 0, num_frames: Optional[int] = None
 ) -> Optional[np.ndarray]:

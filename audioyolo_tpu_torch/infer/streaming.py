@@ -19,20 +19,34 @@ Chunks are read, framed and copied to the device on a producer thread
 (:func:`_prefetch_iter`) and dispatched two deep: chunk N+1 is queued on the
 device before chunk N's detections are copied back.
 
-On the card every batch is written into a fresh pinned host tensor (the
-frames straight from the framer) and copied with ``non_blocking=True`` on
-the default stream, which orders the copy before the forward that reads it.
-No host buffer is reused while its copy is in flight: PyTorch's caching host
-allocator hands a freed pinned block out again only after the copies
-recorded on it have completed.
+In :func:`evaluate_files_batched` the int16 waveform path (no ``frame_fn``,
+``transfer="int16"``) reads a batch whose windows all come from mono PCM16
+files (``wavio.is_pcm16_mono``) with one native call
+(``data/native.py::load_batch_i16``, the interpreter lock released) straight
+into the host tensor that is copied to the device: no per-window arrays, no
+stack, no second host copy. Every other batch, and :func:`evaluate_audio`,
+reads window by window or chunk by chunk, stacks, and copies into a fresh
+pinned host tensor (the frames straight from the framer).
+
+On the card host tensors are pinned blocks of PyTorch's caching host
+allocator, copied with ``non_blocking=True`` on the default stream, which
+orders the copy before the forward that reads it. No host buffer is reused
+while its copy is in flight: the allocator hands a freed pinned block out
+again only after the copies recorded on it have completed; the direct read
+zero-fills the rows past a batch's last window, since the block it gets may
+hold an earlier batch.
 
 Spans (``utils/trace.py``, recorded only under a profiler): on the producer
-thread ``ayt.stream.read`` (a window or chunk read), ``ayt.stream.stack``
-(a batch stacked and padded) and ``ayt.stream.pin`` (the fresh pinned host
-memory filled; the copy's enqueue stays outside); on the dispatching thread
-``ayt.stream.wait_input`` (blocked on the producer), ``ayt.stream.wait_device``
-(blocked on a batch's results) and ``ayt.stream.drain`` (rows and CSVs
-after the fetch). None encloses a launch or a copy.
+thread ``ayt.stream.read`` (a window or chunk read; a direct batch's native
+call, with ``ayt.stream.read_direct`` nested in it once per such batch),
+``ayt.stream.stack`` (a batch stacked and padded; for a direct batch its
+spans listed, each pad row a span of no frames that the native read
+zero-fills) and ``ayt.stream.pin`` (the fresh pinned host memory filled; a
+direct batch's pinned block taken; the copy's enqueue stays outside); on the
+dispatching thread ``ayt.stream.wait_input`` (blocked on the producer),
+``ayt.stream.wait_device`` (blocked on a batch's results) and
+``ayt.stream.drain`` (rows and CSVs after the fetch). None encloses a launch
+or a copy.
 """
 
 from __future__ import annotations
@@ -50,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data import native
-from ..data.wavio import read_wav, read_wav_info, read_wav_pcm16_mono
+from ..data.wavio import is_pcm16_mono, read_wav, read_wav_info, read_wav_pcm16_mono
 from ..ops.resample import Resampler
 from ..utils.trace import span
 from .decode import postprocess_detections, unpack_detections
@@ -379,24 +393,47 @@ def evaluate_audio(
     return None
 
 
-def _iter_windows(path: str, sample_size: int, total_frames: int):
-    """Yield (clip_idx, window) fixed-size mono windows of one file; int16
-    for PCM16 mono, float32 otherwise; the tail zero-padded."""
-    start, clip = 0, 0
-    while start < total_frames:
-        n = min(sample_size, total_frames - start)
-        with span("ayt.stream.read"):
-            raw = read_wav_pcm16_mono(path, frame_offset=start, num_frames=n)
-            if raw is None:
-                audio, _ = read_wav(path, frame_offset=start, num_frames=n)
-                if audio.shape[0] != 1:
-                    audio = audio.mean(axis=0, keepdims=True)
-                raw = audio[0].astype(np.float32)
-            if raw.shape[-1] < sample_size:
-                raw = np.pad(raw, (0, sample_size - raw.shape[-1]))
-        yield clip, raw
-        clip += 1
-        start += sample_size
+def _read_window(path: str, start: int, n: int, sample_size: int) -> np.ndarray:
+    """One fixed-size mono window of ``n`` frames from ``start``; int16 for
+    PCM16 mono, float32 otherwise; the tail zero-padded."""
+    with span("ayt.stream.read"):
+        raw = read_wav_pcm16_mono(path, frame_offset=start, num_frames=n)
+        if raw is None:
+            audio, _ = read_wav(path, frame_offset=start, num_frames=n)
+            if audio.shape[0] != 1:
+                audio = audio.mean(axis=0, keepdims=True)
+            raw = audio[0].astype(np.float32)
+        if raw.shape[-1] < sample_size:
+            raw = np.pad(raw, (0, sample_size - raw.shape[-1]))
+    return raw
+
+
+def _host_batch(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """An int16 host tensor, uninitialised, for a batch bound for ``device``:
+    on the card a pinned block of the caching host allocator."""
+    if device.type != "cuda":
+        return torch.empty(shape, dtype=torch.int16)
+    with span("ayt.stream.pin"):
+        return torch.empty(shape, dtype=torch.int16, pin_memory=True)
+
+
+def _read_batch_direct(spans: List[Tuple[str, int, int]], batch_size: int, sample_size: int,
+                       device: torch.device) -> torch.Tensor:
+    """``spans`` ``(path, frame_offset, num_frames)`` of mono PCM16 files
+    read by the native loader straight into one (batch_size, 1, sample_size)
+    int16 host tensor (``_host_batch``), then sent ``non_blocking``: the
+    bytes of ``np.stack`` of ``_read_window``'s windows padded with zero
+    rows. The loader zero-fills each span past its frames, so a row past the
+    last window is a span of no frames: a reused pinned block holds an
+    earlier batch, and the rows are zeroed on the loader's threads with the
+    interpreter lock released."""
+    buf = _host_batch((batch_size, 1, sample_size), device)
+    with span("ayt.stream.stack"):
+        files, offsets, counts = zip(*spans, *[(spans[0][0], 0, 0)] * (batch_size - len(spans)))
+    with span("ayt.stream.read"), span("ayt.stream.read_direct"):
+        native.load_batch_i16(files, offsets, counts, sample_size,
+                              out=buf.numpy().reshape(batch_size, sample_size))
+    return buf.to(device, non_blocking=True)
 
 
 def evaluate_files_batched(
@@ -443,11 +480,21 @@ def evaluate_files_batched(
         if r == 0:  # zero-length file: no windows, write its (empty) CSV now
             finish_file(fi)
 
-    def windows():
-        for fi, (path, (_, total, _)) in enumerate(zip(paths, infos)):
-            yield from ((fi, clip, w) for clip, w in _iter_windows(path, sample_size, total))
+    # the int16 waveform path reads a batch of mono PCM16 files straight
+    # into its host tensor; any other batch is read window by window
+    direct = ([is_pcm16_mono(p) for p in paths] if frame_fn is None and transfer == "int16"
+              else [False] * len(paths))
 
-    def to_device(wins: List[np.ndarray]):
+    def windows():
+        for fi, (_, total, _) in enumerate(infos):
+            for clip, start in enumerate(range(0, total, sample_size)):
+                yield fi, clip, start, min(sample_size, total - start)
+
+    def to_device(spans: List[Tuple[int, int, int]]):
+        if all(direct[fi] for fi, _, _ in spans):
+            return _read_batch_direct([(paths[fi], start, n) for fi, start, n in spans],
+                                      batch_size, sample_size, device)
+        wins = [_read_window(paths[fi], start, n, sample_size) for fi, start, n in spans]
         with span("ayt.stream.stack"):
             if all(w.dtype == np.int16 for w in wins):
                 arr = np.stack(wins)
@@ -468,15 +515,15 @@ def evaluate_files_batched(
         return _to_device(arr[:, None, :], device)
 
     def batches():
-        metas, wins = [], []
-        for fi, clip, w in windows():
+        metas, spans = [], []
+        for fi, clip, start, n in windows():
             metas.append((fi, clip))
-            wins.append(w)
-            if len(wins) == batch_size:
-                yield metas, to_device(wins)
-                metas, wins = [], []
-        if wins:
-            yield metas, to_device(wins)
+            spans.append((fi, start, n))
+            if len(spans) == batch_size:
+                yield metas, to_device(spans)
+                metas, spans = [], []
+        if spans:
+            yield metas, to_device(spans)
 
     def drain(metas, out):
         dets = _fetch(out)

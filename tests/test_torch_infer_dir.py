@@ -11,11 +11,13 @@ within the slice's tolerances (class equal, confidence 1e-4, times 1e-3 s,
 
 import copy
 import os
+import struct
 import threading
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax
 import jax.numpy as jnp
@@ -28,11 +30,13 @@ from audioyolo_tpu.models import fold_repvgg as j_fold
 from audioyolo_tpu.ops.frontend import SpectralFrontend as JFrontend
 
 from audioyolo_tpu_torch.config import Config
-from audioyolo_tpu_torch.data.wavio import write_wav
+from audioyolo_tpu_torch.data.wavio import (read_wav, read_wav_info, read_wav_pcm16_mono,
+                                             write_wav)
 from audioyolo_tpu_torch.infer import (evaluate_audio, evaluate_dir, evaluate_files_batched,
                                        make_inference_fn)
 from audioyolo_tpu_torch.infer.streaming import _prefetch_iter
 from audioyolo_tpu_torch.models import AudioDetectionModel, fold_repvgg, state_dict_from_jax
+from audioyolo_tpu_torch.utils import trace
 
 from synth import synth_clip
 from test_torch_model import _randomize
@@ -146,19 +150,24 @@ def _seconds(field):
     return int(h) * 3600 + int(m) * 60 + float(s)
 
 
-@pytest.mark.parametrize("posture", ["highest", "kernel"])
+@pytest.mark.parametrize("posture", ["highest", "kernel", "waveform"])
 def test_evaluate_dir_csvs_match_jax(posture, highest, audio_dir, tmp_path, monkeypatch):
     """Each file's rows match the JAX package's within the slice's tolerances,
     and its CSV text is the same. A time within float32 noise of a 5 ms
     rounding boundary may round the other way: such a field may differ by
-    one 10 ms unit, and only where the rows agree to 1e-3 s."""
+    one 10 ms unit, and only where the rows agree to 1e-3 s. ``waveform``:
+    the ``highest`` pair without a host framer, so the batches of mono PCM16
+    windows are read straight into their host tensor and the batches that
+    hold the stereo file's windows are promoted."""
     import audioyolo_tpu.infer.streaming as j_streaming
     import audioyolo_tpu_torch.infer.streaming as t_streaming
 
-    raw, j_fn, t_fn = highest if posture == "highest" else _pair(posture)
+    raw, j_fn, t_fn = highest if posture in ("highest", "waveform") else _pair(posture)
     j_rows, t_rows = _recording(monkeypatch, j_streaming), _recording(monkeypatch, t_streaming)
     j_frame = JFrontend(JConfig(copy.deepcopy(raw))).frame_host
     t_frame = t_fn.model.frontend.frame_host
+    if posture == "waveform":
+        j_frame = t_frame = None
     n_j = j_evaluate_dir(j_fn, audio_dir, str(tmp_path / "jax"), num_concurrency=2,
                          verbose=False, frame_fn=j_frame, **KW)
     n_t = evaluate_dir(t_fn, audio_dir, str(tmp_path / "port"), num_concurrency=2,
@@ -270,6 +279,135 @@ def test_int8_transfer_is_refused(highest, audio_dir, tmp_path, monkeypatch):
                                frame_fn=t_fn.model.frontend.frame_host, **KW)
     with pytest.raises(ValueError, match="transfer"):
         evaluate_audio(t_fn, one, "", transfer="int4", **KW)
+
+
+def _window_batches(paths, batch, size):
+    """The batches ``evaluate_files_batched`` sends, read the plain way:
+    each file's windows by its header's frame count, ``read_wav_pcm16_mono``
+    for mono PCM16 and ``read_wav``'s channel mean otherwise, tails
+    zero-padded, stacked (promoted to float32 as the readers scale, where a
+    batch mixes), padded to ``batch`` with zero rows, as (B, 1, size)."""
+    wins = []
+    for p in paths:
+        total = read_wav_info(p)[1]
+        for start in range(0, total, size):
+            n = min(size, total - start)
+            w = read_wav_pcm16_mono(p, frame_offset=start, num_frames=n)
+            if w is None:
+                w = read_wav(p, frame_offset=start, num_frames=n)[0].mean(axis=0)
+            wins.append(np.pad(w, (0, size - w.shape[0])))
+    out = []
+    for i in range(0, len(wins), batch):
+        group = wins[i:i + batch]
+        if any(w.dtype != np.int16 for w in group):
+            group = [w.astype(np.float32) / np.float32(32768.0) if w.dtype == np.int16
+                     else w.astype(np.float32) for w in group]
+        arr = np.stack(group)
+        out.append(np.concatenate([arr, np.zeros((batch - len(group), size), arr.dtype)])[:, None])
+    return out
+
+
+def _recorded_run(paths, out_dir, monkeypatch, **kw):
+    """``evaluate_files_batched`` with a stub inference function that keeps
+    each batch it is given, every direct batch's host tensor pre-filled with
+    a non-zero value (a reused pinned block holds an earlier batch), under a
+    profiler: (batches, span counts)."""
+    import audioyolo_tpu_torch.infer.streaming as t_streaming
+
+    host_batch = t_streaming._host_batch
+    monkeypatch.setattr(t_streaming, "_host_batch",
+                        lambda shape, device: host_batch(shape, device).fill_(0x2A2A))
+    seen = []
+
+    def stub(x):
+        x = x[0] if isinstance(x, tuple) else x  # int8 transfer: (q, scale)
+        seen.append(x.numpy().copy())
+        out = torch.zeros(x.shape[0], 8, 6)
+        out[:, 0, :5] = torch.tensor([0.9, 0.9, 0.0, 0.5, 0.2])
+        out[:, 0, 5] = 1.0
+        return out
+
+    stub.device = torch.device("cpu")
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert evaluate_files_batched(stub, paths, out_dir, **kw) == len(paths)
+    counts = {k: v["count"] for k, v in trace.totals().items()}
+    trace.reset()
+    return seen, counts
+
+
+def _assert_batches_equal(seen, want):
+    assert len(seen) == len(want)
+    for got, ref in zip(seen, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert got.tobytes() == ref.tobytes()
+
+
+def test_direct_read_batches_equal_the_stacked_windows(tmp_path, monkeypatch):
+    """Mono PCM16 files at the model rate of mixed lengths (three end in a
+    zero-padded tail window), 10 windows in batches of 4: every batch the device gets is, byte
+    for byte, the stack of the windows read one by one, the partial last
+    batch's pad rows zero though its host tensor held other data; one
+    native read a batch, each of them direct."""
+    kw = dict(input_sample_rate=8000, sample_duration=1.0, batch_size=4, idx2class_map=IDX2CLASS)
+    rng = np.random.default_rng(11)
+    paths = []
+    for i, sec in enumerate((2.5, 1.0, 4.3, 0.2)):  # 3 + 1 + 5 + 1 windows
+        paths.append(str(tmp_path / "audio" / f"m{i}.wav"))
+        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+        write_wav(paths[-1], (0.3 * rng.standard_normal(int(sec * 8000))).astype(np.float32),
+                  8000)
+    seen, counts = _recorded_run(paths, str(tmp_path / "out"), monkeypatch, **kw)
+    want = _window_batches(paths, 4, 8000)
+    assert len(want) == 3 and not want[-1][2:].any()  # 4 + 4 + 2 windows
+    _assert_batches_equal(seen, want)
+    assert counts["ayt.stream.read"] == counts["ayt.stream.read_direct"] == 3
+    assert counts["ayt.stream.stack"] == counts["ayt.stream.drain"] == 3
+    assert len(_csvs(tmp_path / "out")) == 4
+
+
+def test_fallback_batches_are_read_as_before(tmp_path, monkeypatch):
+    """Among mono PCM16 files, a stereo PCM16 file, an IEEE float32 file and
+    a mono PCM16 file whose data chunk is shorter than its header says: the
+    batches that hold their windows are read window by window (promoted to
+    float32 where a batch mixes, the short file zero-padded), the rest
+    straight into their host tensor; the batches equal the plain reading in
+    both; ``ayt.stream.read_direct`` counts the all-mono-PCM16 batches, and
+    a framer or the int8 transfer keeps every batch on the old path."""
+    kw = dict(input_sample_rate=8000, sample_duration=1.0, batch_size=2, idx2class_map=IDX2CLASS)
+    rng = np.random.default_rng(12)
+    d = tmp_path / "audio"
+    d.mkdir()
+
+    def noise(*shape):
+        return (0.3 * rng.standard_normal(shape)).astype(np.float32)
+
+    write_wav(str(d / "a.wav"), noise(16000), 8000)  # batch 1: a0 a1, direct
+    write_wav(str(d / "b.wav"), noise(2, 12000), 8000)  # batch 2: b0 b1, float32
+    write_wav(str(d / "c.wav"), noise(8000), 8000)  # batch 3: c0 d0, float32
+    data = noise(8000).astype("<f4").tobytes()
+    with open(d / "d.wav", "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 3, 1, 8000, 32000, 4, 32))
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+    write_wav(str(d / "e.wav"), noise(20000), 8000)  # batch 4: e0 e1, direct
+    write_wav(str(d / "f.wav"), noise(9600), 8000)  # batch 5: e2 f0, int16; 6: f1 g0
+    with open(d / "f.wav", "r+b") as f:
+        f.truncate(44 + 2 * 7000)  # the header still counts 9600 frames
+    write_wav(str(d / "g.wav"), noise(4000), 8000)
+    write_wav(str(d / "h.wav"), noise(5000), 8000)  # batch 7: h0 and a zero row, direct
+    paths = sorted(str(p) for p in d.iterdir())
+    want = _window_batches(paths, 2, 8000)
+    assert [w.dtype for w in want] == [np.int16, np.float32, np.float32] + [np.int16] * 4
+    seen, counts = _recorded_run(paths, str(tmp_path / "out"), monkeypatch, **kw)
+    _assert_batches_equal(seen, want)
+    assert counts["ayt.stream.read_direct"] == 3  # batches 1, 4 and 7
+    assert counts["ayt.stream.read"] == 3 + 2 * 4  # and a read a window in the other four
+    assert counts["ayt.stream.drain"] == 7
+
+    for extra in (dict(transfer="int8"), dict(frame_fn=lambda clips: clips)):
+        _, counts = _recorded_run(paths[:1], str(tmp_path / "x"), monkeypatch, **kw, **extra)
+        assert "ayt.stream.read_direct" not in counts and counts["ayt.stream.read"] == 2
 
 
 def _new_threads(before):

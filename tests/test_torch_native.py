@@ -156,6 +156,27 @@ def test_load_batches_bit_equal(wavs):
         native.frame_i16(ref16, ours, out=out.astype(np.float32))
 
 
+def test_load_batch_i16_into_a_caller_buffer(wavs):
+    """``out=`` gives the allocating form's bytes in the caller's array (a
+    row slice of a larger one too) and refuses a wrong shape, dtype, a
+    non-contiguous or a read-only array."""
+    clip = 4 * 22050
+    offs, counts = [250, 17, 0], [clip, clip, clip]
+    want = native.load_batch_i16(wavs, offs, counts, clip)
+    big = np.full((5, clip), 7, np.int16)
+    got = native.load_batch_i16(wavs, offs, counts, clip, out=big[1:4])
+    assert np.shares_memory(got, big)
+    np.testing.assert_array_equal(big[1:4], want)
+    assert (big[0] == 7).all() and (big[4] == 7).all()
+    readonly = np.empty((3, clip), np.int16)
+    readonly.flags.writeable = False
+    for bad in (np.empty((2, clip), np.int16), np.empty((3, clip - 1), np.int16),
+                np.empty((3, clip), np.float32), np.empty((3, 2 * clip), np.int16)[:, ::2],
+                readonly):
+        with pytest.raises(ValueError, match="C-contiguous int16"):
+            native.load_batch_i16(wavs, offs, counts, clip, out=bad)
+
+
 def test_quant_i8_bit_equal():
     """Steps and codes equal the numpy form of the same arithmetic
     (float32 reciprocal, multiply, round half to even) and the JAX

@@ -1,5 +1,5 @@
 """The port's spans (``utils/trace.py``) in the streaming path, on the CPU:
-recorded only under a profiler, counted per window and per batch, the
+recorded only under a profiler, counted per batch and per chunk, the
 dispatching thread's three side by side in the profiler's trace, and the
 CSVs the same with and without a profiler."""
 
@@ -76,12 +76,12 @@ def test_counts_nesting_and_csvs_under_a_profiler(wavs, tmp_path):
         evaluate_files_batched(_stub_infer, wavs, str(tmp_path / "traced"), **KW)
     got = trace.totals()
     counts = {k: v["count"] for k, v in got.items()}
-    # one read a window, one stack, wait and drain a batch; the producer's
-    # end-of-stream marker takes one more wait for input; no pinned fill
-    # on the CPU
-    assert counts == {"ayt.stream.read": 19, "ayt.stream.stack": 5,
-                      "ayt.stream.wait_input": 6, "ayt.stream.wait_device": 5,
-                      "ayt.stream.drain": 5}
+    # mono PCM16 files: one native read (a direct one), stack, wait and
+    # drain a batch; the producer's end-of-stream marker takes one more wait
+    # for input; no pinned block on the CPU
+    assert counts == {"ayt.stream.read": 5, "ayt.stream.read_direct": 5,
+                      "ayt.stream.stack": 5, "ayt.stream.wait_input": 6,
+                      "ayt.stream.wait_device": 5, "ayt.stream.drain": 5}
     for v in got.values():
         assert 0.0 <= v["self_s"] <= v["total_s"]
 
