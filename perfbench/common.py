@@ -23,8 +23,10 @@ CLASSES = {0: "alarm", 1: "music"}  # the shipped task's map: class names in sor
 
 
 def checkpoint(ctx) -> Tuple[Dict[str, torch.Tensor], str, str]:
-    """(state dict on the device, its ``.pt`` path, the class map's path)."""
-    sd = weights.make(ctx.cfg, len(CLASSES), ctx.seed, ctx.device)
+    """(state dict on the device, its ``.pt`` path, the class map's path).
+    The weights are the configuration's (its ``weights_seed``), whatever the
+    run seed: every run of a cell serves one checkpoint."""
+    sd = weights.make(ctx.cfg, len(CLASSES), int(ctx.config["weights_seed"]), ctx.device)
     path = os.path.join(ctx.tmp, "weights.pt")
     torch.save(sd, path)
     cmap = os.path.join(ctx.tmp, "class_map.json")

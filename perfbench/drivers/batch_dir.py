@@ -4,8 +4,13 @@ inference function from a checkpoint, and ``infer.runner.evaluate_dir``
 writes one CSV per file. The window runs whole passes over the directory,
 closed loop, each pass overwriting the CSVs.
 
-``batch_audio_s_per_s`` is the audio of every pass over the time from the
-window's start to the end of its last pass. Correctness: every window of the
+``card_busy_s_per_audio_h`` is the card's busy time over the whole window
+(the union of its operations, from a profile of the card alone) per hour
+of the audio of every pass; ``audio_s_per_s.batch`` (per layer) is that
+audio over the time from the window's start to the end of its last pass,
+on the host's clock, which follows the host's own pace.
+
+Correctness: every window of the
 last pass, and 32 windows of an earlier pass drawn from the seed, are held to
 the plain reference by ``conf_gap_rel`` and ``time_gap_rel`` (the rows'
 confidences and times), ``nms_wrong`` (the row set, decision by decision)
@@ -189,31 +194,52 @@ def checks(got: Dict, limits: Dict) -> Dict[str, tuple]:
 
 def window(ctx, setup: Setup, wrap=None):
     """Closed-loop passes until ``ctx.seconds`` have gone; the traced run
-    profiles whole passes from the second on, about two seconds of them."""
+    profiles whole passes from the second on, about two seconds of them,
+    and the untraced run the card alone over the whole window."""
     passes: List[List[torch.Tensor]] = []
     times: List[float] = []
     traced = 0
     slice_cm: Optional[contextlib.ExitStack] = None
-    t0 = time.perf_counter()
-    while True:
-        if ctx.tracer.on and len(passes) == 1:
-            slice_cm = contextlib.ExitStack()
-            slice_cm.enter_context(ctx.tracer.slice())
-            ts = time.perf_counter()
-        tp = time.perf_counter()
-        passes.append(setup.one_pass(ctx, wrap))
-        times.append(time.perf_counter() - tp)
-        if slice_cm is not None:
-            traced += 1
-            if time.perf_counter() - ts >= 2.0:
-                slice_cm.close()
-                slice_cm = None
-        if time.perf_counter() - t0 >= ctx.seconds and slice_cm is None:
-            break
+    with ctx.tracer.card(ctx.device):
+        t0 = time.perf_counter()
+        while True:
+            if ctx.tracer.on and len(passes) == 1:
+                slice_cm = contextlib.ExitStack()
+                slice_cm.enter_context(ctx.tracer.slice())
+                ts = time.perf_counter()
+            tp = time.perf_counter()
+            passes.append(setup.one_pass(ctx, wrap))
+            times.append(time.perf_counter() - tp)
+            if slice_cm is not None:
+                traced += 1
+                if time.perf_counter() - ts >= 2.0:
+                    slice_cm.close()
+                    slice_cm = None
+            if time.perf_counter() - t0 >= ctx.seconds and slice_cm is None:
+                break
+        elapsed = time.perf_counter() - t0
     q = np.percentile(times, [0, 25, 50, 75, 100])
     print("perfbench: batch_dir pass_s min/q1/median/q3/max " + " ".join(f"{v:.4f}" for v in q),
           file=sys.stderr)
-    return passes, time.perf_counter() - t0, traced
+    return passes, elapsed, traced
+
+
+def card_busy(ctx, passes: List[List[torch.Tensor]], audio_h: float) -> Dict[str, float]:
+    """``card_busy_s_per_audio_h`` of the untraced run's whole window (none
+    on the CPU or when traced). Kernel 1 runs once a batch: a profile that
+    holds fewer of its launches than the window ran batches dropped
+    operations, and the run stops."""
+    got = ctx.tracer.card_summary
+    if got is None:
+        return {}
+    launches = sum(n for name, n in got["counts"].items() if KERNEL1[-1] in name)
+    batches = sum(len(p) for p in passes)
+    if launches != batches:
+        raise RuntimeError(f"the card's profile holds {launches} launches of {KERNEL1[-1]} "
+                           f"for the window's {batches} batches")
+    print(f"perfbench: batch_dir card busy_s={got['busy_s']!r} batches={batches} "
+          f"ops={sum(got['counts'].values())}", file=sys.stderr)
+    return {"card_busy_s_per_audio_h": got["busy_s"] / audio_h}
 
 
 def readings(ctx, control: Optional[str] = None) -> Dict:
@@ -245,14 +271,15 @@ def run(ctx, wrap=None) -> Dict:
                              int(ctx.cfg["melspectrogram_config"]["n_fft"]),
                              int(ctx.cfg["melspectrogram_config"]["n_fft"]) // 2 + 1,
                              int(ctx.cfg["melspectrogram_config"]["n_mels"]), 4)
+    audio_s = len(passes) * setup.audio_s
     return {
-        "metrics": {"setup_s": setup_s,
-                    "batch_audio_s_per_s": len(passes) * setup.audio_s / elapsed},
+        "metrics": {"setup_s": setup_s, **card_busy(ctx, passes, audio_s / 3600.0)},
         "attempted": len(passes) * len(setup.windows),
         "failed": 0,
         "checks": checks(got, ctx.limits),
         "memory_peak_bytes": peak,
         "facts": {"flops": model_flops.forward_flops_per_window(ctx.cfg, len(common.CLASSES))
                   * len(setup.windows) * traced,
-                  "mel_bound_s": shape["seconds"], "kernel1": KERNEL1},
+                  "mel_bound_s": shape["seconds"], "kernel1": KERNEL1,
+                  "audio_s_per_s": audio_s / elapsed},
     }

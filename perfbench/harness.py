@@ -55,8 +55,8 @@ def load_json(kind: str, name: str, base: str = HERE) -> Dict[str, Any]:
 
 
 def load_config(name: str, base: str = HERE) -> Dict[str, Any]:
-    """The configuration file: ``config`` (as run), ``source``, ``changed``
-    and ``assumed``."""
+    """The configuration file: ``config`` (as run), ``weights_seed`` (the
+    checkpoint's seed), ``source``, ``changed`` and ``assumed``."""
     with open(find("configs", name, ".yaml", base)) as f:
         return yaml.safe_load(f)
 

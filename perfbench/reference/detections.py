@@ -23,6 +23,11 @@ import torch
 
 
 CONF_MARGIN = 0.05
+# a proposal's edges move by the error in its width logit times its anchor,
+# so a long row's edges move further: under a bf16 body up to 0.20 s for rows
+# of 10-60 s on an H100, 0.95 % of the row's length; where a nearer proposal
+# stands beside it, a fixed 0.1 s would match the row to that one
+REL_TOL = 0.02
 GAP_CAP = 0.01
 TIME_CAP = 0.1
 DECISION_MARGINS = (0.05, 0.01)  # confidence, IoU
@@ -112,9 +117,10 @@ def match(rows: Sequence[tuple], preds: torch.Tensor, duration: float, tol: floa
     window: the reference proposal it stands for, and the confidence gap
     (|program confidence - the reference's confidence of the program's
     class|) there. That is, of the proposals whose start and end both lie
-    within ``tol`` of the row's, the one whose confidence is closest (times
-    move by a few tens of ms between two implementations, and proposals lie
-    closer than that); the nearest one where none does."""
+    within ``tol`` of the row's, or within ``REL_TOL`` of the row's length
+    where that is more, the one whose confidence is closest (times move by
+    a few tens of ms between two implementations, and proposals lie closer
+    than that); the nearest one where none does."""
     if not rows:
         return np.zeros(0, np.int64), np.zeros(0)
     conf_c = confidences(preds.double()).cpu().numpy()
@@ -122,7 +128,7 @@ def match(rows: Sequence[tuple], preds: torch.Tensor, duration: float, tol: floa
     idx, cg = [], []
     for conf, cls, s, e in rows:
         d = np.maximum(np.abs(x1 - s), np.abs(x2 - e))
-        near = np.nonzero(d <= max(tol, d.min()))[0]
+        near = np.nonzero(d <= max(tol, REL_TOL * (e - s), d.min()))[0]
         gaps = np.abs(conf_c[near, cls] - conf)
         j = int(np.argmin(gaps))
         idx.append(int(near[j]))

@@ -1,25 +1,44 @@
 """Plain float32 detector over a train-form checkpoint (the port's
 ``state_dict`` key names, the reference repository's layer names).
 
-ResNet backbone (two 7x7/s2 stem convs, BasicBlock or Bottleneck stages
-as torchvision builds them, no max pool), the YOLOv6 neck (CSP-SPPF, BiC
-fusion, RepVGG blocks) and the per-scale YOLO decode. BatchNorm runs on its
-running statistics. Every RepVGG block is folded here, from the unfolded
-weights: 3x3+BN, 1x1+BN and identity BN summed into one biased 3x3 conv.
-Functional code over a dict of tensors; ``torch`` only.
+The configuration's backbone (``backbones/<backbone>.py``, found by the
+``backbone`` key), the YOLOv6 neck (CSP-SPPF, BiC fusion, RepVGG blocks)
+and the per-scale YOLO decode. BatchNorm runs on its running statistics.
+Every RepVGG block is folded here, from the unfolded weights: 3x3+BN, 1x1+BN
+and identity BN summed into one biased 3x3 conv. Functional code over a
+dict of tensors; ``torch`` only.
+
+A backbone module defines ``shapes(cfg) -> ({name: shape}, pyramid
+widths)``, its train-form leaves in draw order; ``forward(det, x) ->
+[f1, f2, f3, f4]``, the float32 backbone built from :class:`Detector`'s
+``conv``, ``bn`` and ``r``, every value it produces rounded through
+``det.r``; and optionally ``draw(name, shape, u) -> Tensor | None``, the
+seeded value of a leaf from its uniform block (``weights.make``), None
+leaving the leaf to the generic rule.
 """
 
 from __future__ import annotations
 
+import os
+from types import ModuleType
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
+from .. import harness
 from .frontend import Frontend
 
 EPS = 1e-5
 Sd = Dict[str, torch.Tensor]
+
+
+def backbone_module(cfg: dict) -> ModuleType:
+    """``reference/backbones/<cfg["backbone"]>.py``; an unknown backbone
+    raises ``FileNotFoundError`` naming the file looked for."""
+    name = str(cfg["backbone"])
+    path = harness.find(os.path.join("reference", "backbones"), name, ".py")
+    return harness.load_module(path, "perfbench_backbone_" + name)
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
@@ -72,8 +91,7 @@ class Detector:
         self.cfg = cfg
         self.sd = {k: v.detach().to(device, torch.float32) for k, v in sd.items()}
         self.frontend = Frontend(cfg, device)
-        self.bottleneck = (cfg.get("resnet_config") or {}).get("block", "BasicBlock") == "Bottleneck"
-        self.layers = [int(n) for n in cfg["block_layers"]]
+        self.backbone = backbone_module(cfg)
         self.duration = float(cfg["sample_duration"])
         self.fitting = False
         self.body_bf16 = body_bf16
@@ -135,30 +153,6 @@ class Detector:
     def rep_block(self, x, p):
         return self.repvgg(self.repvgg(x, p + ".conv1"), p + ".block0")
 
-    def block(self, x, p, stride):
-        sd = self.sd
-        if self.bottleneck:
-            y = F.relu(self.bn(self.conv(x, p + ".conv1.conv"), p + ".bn1"))
-            y = F.relu(self.bn(self.conv(y, p + ".conv2.conv", stride, 1), p + ".bn2"))
-            y = self.bn(self.conv(y, p + ".conv3.conv"), p + ".bn3")
-        else:
-            y = F.relu(self.bn(self.conv(x, p + ".conv1.conv", stride, 1), p + ".bn1"))
-            y = self.bn(self.conv(y, p + ".conv2.conv", 1, 1), p + ".bn2")
-        if p + ".downsample_conv.conv.weight" in sd:
-            x = self.bn(self.conv(x, p + ".downsample_conv.conv", stride), p + ".downsample_bn")
-        return F.relu(self.r(y + x))
-
-    def backbone(self, x):
-        sd, p = self.sd, "feature_extractor"
-        x = self.conv(x, p + ".conv1.conv", 2, 3)
-        x = F.relu(self.bn(self.conv(x, p + ".conv2.conv", 2, 3), p + ".bn1"))
-        fmaps = []
-        for li, n in enumerate(self.layers):
-            for bi in range(n):
-                x = self.block(x, f"{p}.layer{li + 1}_{bi}", 2 if (li > 0 and bi == 0) else 1)
-            fmaps.append(x)
-        return fmaps
-
     def neck(self, f1, f2, f3, f4):
         p = "multiscale_module"
         cba = self.conv_bn_act
@@ -204,13 +198,15 @@ class Detector:
     @torch.no_grad()
     def __call__(self, wave: torch.Tensor) -> torch.Tensor:
         img = self.frontend(wave)
-        outs = self.neck(*self.backbone(self.r(img)))
+        outs = self.neck(*self.backbone.forward(self, self.r(img)))
         t = img.shape[-1]
         return torch.cat([self.decode(o, k, t) for o, k in zip(outs, ("sm", "md", "lg"))], 1)
 
 
 def checkpoint_shapes(cfg: dict, num_classes: int) -> Dict[str, tuple]:
-    """Name -> shape of every tensor of the train-form checkpoint."""
+    """Name -> shape of every tensor of the train-form checkpoint, in draw
+    order: the anchors, the backbone's leaves, the neck's (its inputs as wide
+    as the backbone's pyramid)."""
     shapes: Dict[str, tuple] = {f"{k}_anchors": (int(cfg["num_anchors"]),)
                                 for k in ("sm", "md", "lg")}
 
@@ -234,30 +230,8 @@ def checkpoint_shapes(cfg: dict, num_classes: int) -> Dict[str, tuple]:
         repvgg_(p + ".conv1", cin, cout)
         repvgg_(p + ".block0", cout, cout)
 
-    fe = "feature_extractor"
-    shapes[fe + ".conv1.conv.weight"] = (64, 2, 7, 7)
-    shapes[fe + ".conv2.conv.weight"] = (64, 64, 7, 7)
-    norm(fe + ".bn1", 64)
-    bottle = (cfg.get("resnet_config") or {}).get("block", "BasicBlock") == "Bottleneck"
-    exp = 4 if bottle else 1
-    cin = 64
-    for li, (planes, stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2))):
-        for bi in range(int(cfg["block_layers"][li])):
-            s = stride if bi == 0 else 1
-            p = f"{fe}.layer{li + 1}_{bi}"
-            if bottle:
-                convs = [("conv1", "bn1", planes, cin, 1), ("conv2", "bn2", planes, planes, 3),
-                         ("conv3", "bn3", planes * 4, planes, 1)]
-            else:
-                convs = [("conv1", "bn1", planes, cin, 3), ("conv2", "bn2", planes, planes, 3)]
-            for c, b, o, i, k in convs:
-                shapes[f"{p}.{c}.conv.weight"] = (o, i, k, k)
-                norm(f"{p}.{b}", o)
-            if s != 1 or cin != planes * exp:
-                shapes[p + ".downsample_conv.conv.weight"] = (planes * exp, cin, 1, 1)
-                norm(p + ".downsample_bn", planes * exp)
-            cin = planes * exp
-    f1, f2, f3, f4 = (c * exp for c in (64, 128, 256, 512))
+    backbone, (f1, f2, f3, f4) = backbone_module(cfg).shapes(cfg)
+    shapes.update(backbone)
     out = int(cfg["num_anchors"]) * (3 + num_classes)
     m = "multiscale_module"
     for name, i, o, k in (("conv1", f4, 64, 1), ("conv3", 64, 64, 3), ("conv4", 64, 64, 1),

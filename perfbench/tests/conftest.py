@@ -46,10 +46,14 @@ def tiny_mix(cell: str) -> dict:
 def tiny_ctx(tmp_path):
     import torch
 
-    def make(cell: str, seed: int = 5, seconds: float = 0.5):
+    def make(cell: str, seed: int = 5, seconds: float = 0.5, weights_seed: int = None):
+        """``weights_seed``: a checkpoint other than the configuration's."""
         args = types.SimpleNamespace(workload=cell, seed=seed, seconds=seconds, trace=0)
+        config = tiny_config(cell_entry(cell)["config"])
+        if weights_seed is not None:
+            config["weights_seed"] = weights_seed
         ctx = harness.Context(args, tiny_mix(cell), harness.load_json("workloads", cell)["limits"],
-                              tiny_config(cell_entry(cell)["config"]), torch.device("cpu"), 0.0)
+                              config, torch.device("cpu"), 0.0)
         ctx.tmp = str(tmp_path / f"run{seed}")
         os.makedirs(ctx.tmp, exist_ok=True)
         return ctx

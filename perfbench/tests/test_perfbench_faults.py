@@ -43,10 +43,11 @@ def test_sound_batch_run_is_correct(tiny_ctx):
                                                 (times_shifted, "time_gap_rel", 5)],
                          ids=["answer_altered", "half_batch", "rows_dropped", "times_shifted"])
 def test_batch_fault_is_caught(tiny_ctx, fault, check, seed):
-    """Rows are dropped on a seed whose tiny windows hold more than one row
-    each (seed 5's hold one or two, and every other row is then few)."""
-    ok, checks = harness.judge(harness.driver("batch_dir").run(tiny_ctx(BATCH, seed=seed),
-                                                               wrap=fault))
+    """Each on the weights and audio of ``seed``. Rows are dropped on a seed
+    whose tiny windows hold more than one row each (seed 5's hold one or
+    two, and every other row is then few)."""
+    ctx = tiny_ctx(BATCH, seed=seed, weights_seed=seed)
+    ok, checks = harness.judge(harness.driver("batch_dir").run(ctx, wrap=fault))
     assert not ok and checks[check]["value"] > checks[check]["limit"], checks
 
 
@@ -99,9 +100,10 @@ def test_batch_control_reads_above_the_program(tiny_ctx):
 def test_planted_nms_faults_read_above_the_program(tiny_ctx, fault):
     """The faults the calibration plants in the program's NMS read far
     above the sound program's ``nms_wrong_pct``, which reads as the
-    yardstick's own."""
+    yardstick's own. On the weights and audio of seed 12, whose tiny
+    windows hold rows enough for every other one to count."""
     drv = harness.driver("batch_dir")
-    sound = drv.readings(tiny_ctx(BATCH, seed=12))
-    bad = drv.readings(tiny_ctx(BATCH, seed=12), control=fault)
+    sound = drv.readings(tiny_ctx(BATCH, seed=12, weights_seed=12))
+    bad = drv.readings(tiny_ctx(BATCH, seed=12, weights_seed=12), control=fault)
     assert sound["nms_wrong_pct"] <= sound["yard_nms_wrong_pct"] + 1.0, sound
     assert bad["nms_wrong_pct"] > 10.0 + sound["nms_wrong_pct"], (sound, bad)

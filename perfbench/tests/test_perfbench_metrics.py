@@ -14,7 +14,7 @@ def ev(name, kind, start_us, end_us, tid=1):
     import torch
 
     on = torch.autograd.DeviceType
-    device = on.CUDA if kind in trace.DEVICE_ACTIVITIES else on.CPU
+    device = on.CUDA if kind in trace.DEVICE_ACTIVITIES + ("gpu_user_annotation",) else on.CPU
     return types.SimpleNamespace(
         name=lambda: name, device_type=lambda: device, start_ns=lambda: start_us * 1000,
         end_ns=lambda: end_us * 1000, start_thread_id=lambda: tid)
@@ -42,6 +42,26 @@ def test_reduce_busy_idle_and_gaps():
     assert gaps[0][1] == pytest.approx(450e-6) and "aten::copy_" in gaps[0][0]  # 550-1000
     assert gaps[1][1] == pytest.approx(200e-6) and gaps[1][0].startswith("pb.batch_dir.infer_fn")
     assert [round(g[1] * 1e6) for g in gaps] == [450, 200, 100]
+
+
+def test_device_twins_of_spans_are_annotations():
+    """A program span's device twin adds no busy time, no kernel and no
+    gap; ``device_spans`` holds the device's work inside it (100-300 and
+    500-550 clipped to 120-520: 180 + 20 us), not its length. A harness
+    span's twin counts for nothing, as before."""
+    base = trace.reduce(EVENTS)
+    assert base["device_spans"] == {}
+    twins = [ev("ayt.model.stage1", "gpu_user_annotation", 120, 520),
+             ev("ayt.model.stage1", "gpu_user_annotation", 560, 700),   # nothing ran
+             ev("ayt.model.stage2", "gpu_user_annotation", 0, 1000),
+             ev("pb.batch_dir.infer_fn", "gpu_user_annotation", 100, 450)]
+    s = trace.reduce(EVENTS + twins)
+    for key in ("window_s", "busy_s", "kernels", "spans", "idle_gaps"):
+        assert s[key] == base[key], key
+    assert trace.breakdown(s) == trace.breakdown(base)
+    assert s["device_spans"]["ayt.model.stage1"] == [pytest.approx(200e-6), 2]
+    assert s["device_spans"]["ayt.model.stage2"] == [pytest.approx(250e-6), 1]
+    assert set(s["device_spans"]) == {"ayt.model.stage1", "ayt.model.stage2"}
 
 
 def test_kernel1_roofline_and_mfu():
@@ -73,3 +93,34 @@ def test_readers_found_for_every_per_layer_metric():
                                                         "kernel1": ("mel_power_kernel",),
                                                         "mel_bound_s": 1e-6})
         assert value is None or value >= 0
+
+
+def test_card_profile_counts_operations_not_span_twins():
+    """The whole window's card profile: the union of the device's
+    operations (100-300 and 500-550, and 1200-1300, which a profile of the
+    card alone holds too), launches by name; span twins and host events
+    count for nothing."""
+    twins = [ev("ayt.stream.read", "gpu_user_annotation", 0, 2000),
+             ev("pb.batch_dir.infer_fn", "gpu_user_annotation", 100, 450)]
+    got = trace.card(EVENTS + twins)
+    assert got["busy_s"] == pytest.approx(350e-6)
+    assert got["counts"] == {"stage_frames_kernel<float>": 1, "mel_power_kernel": 2,
+                             "Memcpy HtoD": 1, "other": 1}
+
+
+@pytest.mark.parametrize("launches, batches", [(12, 12), (11, 12)])
+def test_card_busy_per_audio_hour_and_dropped_operations(launches, batches):
+    """Busy seconds over the audio-hours of the window; a profile that
+    holds fewer launches of kernel 1 than the window ran batches stops
+    the run instead of reading low."""
+    drv = harness.driver("batch_dir")
+    ctx = types.SimpleNamespace(tracer=types.SimpleNamespace(card_summary={
+        "busy_s": 3.0, "counts": {"void mel_power_kernel<32>": launches, "other": 99}}))
+    passes = [[None] * 6, [None] * (batches - 6)]
+    if launches == batches:
+        assert drv.card_busy(ctx, passes, 0.5) == {"card_busy_s_per_audio_h": 6.0}
+    else:
+        with pytest.raises(RuntimeError, match="11 launches"):
+            drv.card_busy(ctx, passes, 0.5)
+    ctx.tracer.card_summary = None
+    assert drv.card_busy(ctx, passes, 0.5) == {}

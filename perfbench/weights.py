@@ -1,16 +1,18 @@
 """Seeded weights of a train-form checkpoint, made on the device in one draw.
 
-Conv kernels are glorot-uniform (the shipped initialiser), conv biases
-U(-0.05, 0.05), BatchNorm scales U(0.8, 1.2) and shifts U(-0.1, 0.1);
-anchors are the configuration's, normalised by the window. The running
-statistics of every BatchNorm are then fitted by the plain reference on
-eight windows of event audio drawn from the seed (``Detector.fit_norms``),
-each running variance set to twice the variance of the layer's input, so
-that folding BatchNorm and the RepVGG branches is far from the identity and
-every layer damps what reaches it. (With the fitted variance itself the
-random network is chaotic: a bf16 rounding of its input moves confidences
-by 0.15, and no comparison with a reference can tell rounding from a
-fault.) The same seed gives the same tensors.
+A leaf that the configuration's backbone module draws itself (its
+``draw``, ``reference/detector.py``) takes that value; the rest follow the
+generic rule: conv kernels are glorot-uniform (the shipped initialiser),
+conv biases U(-0.05, 0.05), BatchNorm scales U(0.8, 1.2) and shifts
+U(-0.1, 0.1); anchors are the configuration's, normalised by the window.
+The running statistics of every BatchNorm are then fitted by the plain
+reference on eight windows of event audio drawn from the seed
+(``Detector.fit_norms``), each running variance set to twice the variance
+of the layer's input, so that folding BatchNorm and the RepVGG branches is
+far from the identity and every layer damps what reaches it. (With the
+fitted variance itself the random network is chaotic: a bf16 rounding of
+its input moves confidences by 0.15, and no comparison with a reference
+can tell rounding from a fault.) The same seed gives the same tensors.
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .reference.detector import Detector, checkpoint_shapes
+from .reference.detector import Detector, backbone_module, checkpoint_shapes
 from .traffic import synth
 
 
 def make(cfg: dict, num_classes: int, seed: int, device,
          fit_windows: int = 8) -> Dict[str, torch.Tensor]:
     shapes = checkpoint_shapes(cfg, num_classes)
+    draw = getattr(backbone_module(cfg), "draw", None)
     sizes = [math.prod(s) for s in shapes.values()]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -39,7 +42,10 @@ def make(cfg: dict, num_classes: int, seed: int, device,
         u = flat[off: off + n].view(shape)
         off += n
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("_anchors"):
+        own = draw(name, shape, u) if draw is not None else None
+        if own is not None:
+            out[name] = own
+        elif name.endswith("_anchors"):
             key = name[: -len("_anchors")]
             a = np.asarray(cfg["anchors"][key], np.float32) / np.float32(duration)
             out[name] = torch.from_numpy(a).to(device)
