@@ -11,6 +11,15 @@
   residual projection, channel-concatenated; each block halves the time axis
   on its last layer. Pyramid channels 128/256/512/1024 at time widths
   240/120/60/30, all at height 32. Dropout follows every layer in train mode.
+- :class:`ConvNeXtBackbone` (``backbone: convnext``): ConvNeXt (Liu et al.
+  2022, arXiv:2201.03545) over the 2-channel image: a 4x4/4 stem conv and
+  LayerNorm, then four stages of ``block_layers`` :class:`ConvNeXtBlock`s
+  at widths ``convnext_config.dims``, stages 2-4 opening with a LayerNorm
+  and a 2x2/2 conv; no final norm, pool or classifier. Pyramid channels
+  ``dims`` at time widths 240/120/60/30 and heights 8/4/2/1. Stochastic
+  depth in train mode, its rate rising linearly over the blocks to
+  ``drop_path_rate``. It runs ``channels_last``: the depthwise and pointwise
+  convs and the channel LayerNorm then read NHWC memory with no transposes.
 
 Dropout masks come from the ``torch.Generator`` the caller hands in, or from
 a :class:`ShardedRng` on a data-parallel rank; ``dtype`` is the compute dtype
@@ -22,9 +31,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv2d, leaky_relu
+from ..utils.trace import span
+from .layers import BatchNorm, Conv2d, LayerNorm2d, leaky_relu
 
 
 class BasicBlock(nn.Module):
@@ -100,16 +111,35 @@ def dropout(x: torch.Tensor, p: float,
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator (generator=...)")
     keep = 1.0 - p
-    # out of place (a rematerialising step saves the mask this op returns);
-    # it draws what empty_like(x).bernoulli_(keep) draws
+    return x * _keep_mask(x.detach(), keep, generator) * (1.0 / keep)
+
+
+def _keep_mask(like: torch.Tensor, keep: float,
+               generator: Union[torch.Generator, ShardedRng]) -> torch.Tensor:
+    """A 0/1 mask of ``like``'s shape, each element 1 with probability
+    ``keep``: out of place (a rematerialising step saves the mask this op
+    returns), drawing what ``empty_like(like).bernoulli_(keep)`` draws; a
+    :class:`ShardedRng` draws the group's batch and keeps the rank's rows."""
     if isinstance(generator, ShardedRng):
-        b = x.shape[0]
-        full = x.new_empty((generator.world * b,) + x.shape[1:])
+        b = like.shape[0]
+        full = like.new_empty((generator.world * b,) + like.shape[1:])
         mask = torch.bernoulli(full, keep, generator=generator.generator)
-        mask = mask[generator.rank * b: (generator.rank + 1) * b]
-    else:
-        mask = torch.bernoulli(x.detach(), keep, generator=generator)
-    return x * mask * (1.0 / keep)
+        return mask[generator.rank * b: (generator.rank + 1) * b]
+    return torch.bernoulli(like, keep, generator=generator)
+
+
+def drop_path(x: torch.Tensor, p: float,
+              generator: Union[torch.Generator, ShardedRng, None]) -> torch.Tensor:
+    """Stochastic depth: each sample's whole branch kept with probability
+    ``1 - p`` and scaled by ``1 / (1 - p)``, one draw per sample from
+    ``generator``."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode stochastic depth needs a torch.Generator (generator=...)")
+    keep = 1.0 - p
+    like = x.new_empty((x.shape[0],) + (1,) * (x.dim() - 1))
+    return x * _keep_mask(like, keep, generator) * (1.0 / keep)
 
 
 class ResNetBackbone(nn.Module):
@@ -219,5 +249,93 @@ class CustomBackbone(nn.Module):
         fmaps = []
         for i in range(4):
             x = getattr(self, f"block{i + 1}")(x, generator)
+            fmaps.append(x)
+        return tuple(fmaps)
+
+
+class ConvNeXtBlock(nn.Module):
+    """Depthwise 7x7 conv -> LayerNorm over channels -> 1x1 conv to 4C ->
+    GELU (erf) -> 1x1 conv to C -> per-channel layer scale ``gamma`` ->
+    stochastic depth (train mode) -> residual add (the official ``Block``
+    with its two ``Linear`` layers as 1x1 convs). GELU, the layer scale and
+    the add run in the compute dtype."""
+
+    def __init__(self, dim: int, drop_rate: float = 0.0, layer_scale_init: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.drop_rate = float(drop_rate)
+        self.dwconv = Conv2d(dim, dim, 7, 1, 3, dtype=dtype, groups=dim)
+        self.norm = LayerNorm2d(dim, dtype=dtype)
+        self.pwconv1 = Conv2d(dim, 4 * dim, 1, dtype=dtype)
+        self.pwconv2 = Conv2d(4 * dim, dim, 1, dtype=dtype)
+        self.gamma = nn.Parameter(torch.full((dim,), float(layer_scale_init)))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.pwconv1(self.norm(self.dwconv(x)))
+        y = self.pwconv2(F.gelu(y))
+        gamma = self.gamma if self.dtype is None else self.gamma.to(self.dtype)
+        y = y * gamma.view(1, -1, 1, 1)
+        if self.training:
+            y = drop_path(y, self.drop_rate, generator)
+        return x + y
+
+
+class ConvNeXtBackbone(nn.Module):
+    """``stem`` (4x4/4 conv) + ``stem_norm``; stage ``s`` (1-4) is
+    ``down{s}_norm`` + ``down{s}`` (2x2/2 conv; stages 2-4) and blocks
+    ``stage{s}_0`` ...; each stage's output is a pyramid map."""
+
+    def __init__(self, block_layers: Sequence[int] = (3, 3, 27, 3),
+                 dims: Sequence[int] = (128, 256, 512, 1024), layer_scale_init: float = 1e-6,
+                 drop_path_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if len(block_layers) != 4 or len(dims) != 4:
+            raise ValueError("block_layers and convnext_config.dims must have length 4")
+        self.block_layers = tuple(int(n) for n in block_layers)
+        self.fmap_channels = tuple(int(d) for d in dims)
+        self.layer_scale_init = float(layer_scale_init)
+        rates = torch.linspace(0.0, float(drop_path_rate), sum(self.block_layers)).tolist()
+        self.stem = Conv2d(2, dims[0], 4, 4, 0, dtype=dtype)
+        self.stem_norm = LayerNorm2d(dims[0], dtype=dtype)
+        k = 0
+        for s, (n, dim) in enumerate(zip(self.block_layers, self.fmap_channels)):
+            if s > 0:
+                setattr(self, f"down{s + 1}_norm", LayerNorm2d(dims[s - 1], dtype=dtype))
+                setattr(self, f"down{s + 1}", Conv2d(dims[s - 1], dim, 2, 2, 0, dtype=dtype))
+            for b in range(n):
+                setattr(self, f"stage{s + 1}_{b}",
+                        ConvNeXtBlock(dim, rates[k], self.layer_scale_init, dtype=dtype))
+                k += 1
+
+    def init_own_weights(self, generator: torch.Generator) -> None:
+        """The paper's: conv kernels trunc-normal (std 0.02, cut at +-2),
+        conv biases 0, LayerNorms at identity, layer scales at
+        ``layer_scale_init``; called by ``layers.init_weights``."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, Conv2d):
+                    nn.init.trunc_normal_(m.conv.weight, std=0.02, generator=generator)
+                    if m.conv.bias is not None:
+                        m.conv.bias.zero_()
+                elif isinstance(m, LayerNorm2d):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                elif isinstance(m, ConvNeXtBlock):
+                    m.gamma.fill_(self.layer_scale_init)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        x = x.contiguous(memory_format=torch.channels_last)
+        fmaps = []
+        for s, n in enumerate(self.block_layers):
+            with span(f"ayt.model.stage{s + 1}"):
+                if s == 0:
+                    x = self.stem_norm(self.stem(x))
+                else:
+                    x = getattr(self, f"down{s + 1}")(getattr(self, f"down{s + 1}_norm")(x))
+                for b in range(n):
+                    x = getattr(self, f"stage{s + 1}_{b}")(x, generator)
             fmaps.append(x)
         return tuple(fmaps)

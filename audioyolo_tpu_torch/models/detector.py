@@ -16,6 +16,9 @@ float32; ``torch.bfloat16`` is what the shipped config's ``compute_dtype``
 asks for). As in the JAX package the frontend runs as it always does, its
 feature image is cast to ``dtype``, and decode casts back to float32, so the
 NMS and the loss see float32. Parameters stay float32 in every dtype.
+
+Spans (``utils/trace.py``): ``ayt.model.backbone`` and ``ayt.model.neck``
+around the two calls, recorded only while a profiler records.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from torch import nn
 
 from ..config import load_config
 from ..ops.frontend import SpectralFrontend
-from .backbone import CustomBackbone, ResNetBackbone
+from ..utils.trace import span
+from .backbone import ConvNeXtBackbone, CustomBackbone, ResNetBackbone
 from .layers import init_weights
 from .neck import MultiScaleFmapModule
 
@@ -54,7 +58,8 @@ def decode_scale(raw: torch.Tensor, anchors_sec: torch.Tensor, num_classes: int,
 
 
 class AudioDetectionModel(nn.Module):
-    """Frontend + backbone (``resnet`` or ``custom``) + YOLOv6 neck + decode.
+    """Frontend + backbone (``resnet``, ``custom`` or ``convnext``) + YOLOv6
+    neck + decode.
 
     ``deploy=True`` declares the folded RepVGG form (see
     ``models/reparam.py::fold_repvgg``); ``branch_act=True`` the reference's
@@ -88,6 +93,11 @@ class AudioDetectionModel(nn.Module):
                                                     **common)
         elif backbone == "custom":
             self.feature_extractor = CustomBackbone(**common)
+        elif backbone == "convnext":
+            # dims, layer_scale_init, drop_path_rate; ``dropout`` is unused
+            self.feature_extractor = ConvNeXtBackbone(
+                block_layers=common["block_layers"], dtype=dtype,
+                **(cfg.raw.get("convnext_config") or {}))
         else:
             raise ValueError(f"unknown backbone type: {backbone}")
         self.multiscale_module = MultiScaleFmapModule(
@@ -121,7 +131,10 @@ class AudioDetectionModel(nn.Module):
         if self.dtype is not None:
             features = features.to(self.dtype)
         x = features.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW
-        n2, n3, n4 = self.multiscale_module(*self.feature_extractor(x, generator))
+        with span("ayt.model.backbone"):
+            fmaps = self.feature_extractor(x, generator)
+        with span("ayt.model.neck"):
+            n2, n3, n4 = self.multiscale_module(*fmaps)
         spectral, dur = self.cfg.n_frames, self.cfg.sample_duration
         scales = [
             decode_scale(n, self.anchors_sec(key), self.num_classes, spectral, dur)

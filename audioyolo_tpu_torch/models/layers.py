@@ -24,7 +24,10 @@ would keep BatchNorm and the adds in other dtypes.
 
 int8 (``models/quant.py``): a ``Conv2d`` whose ``s_x`` buffer is set (the
 calibrated scale of its input) runs :func:`_int8_conv`; with ``s_x`` unset
-(the default) it is the float conv, untouched.
+(the default) it is the float conv, untouched. A grouped conv is never set.
+
+:class:`LayerNorm2d` (the ConvNeXt backbone's) normalises each pixel over
+its channels in float32 and returns ``dtype``, as BatchNorm does.
 """
 
 from __future__ import annotations
@@ -118,8 +121,31 @@ class BatchNorm(nn.Module):
         return (xc * inv.view(shape) + self.bias.view(shape)).to(out_dtype)
 
 
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channel axis of an NCHW map (ConvNeXt's
+    ``channels_first`` LayerNorm): each pixel's C values normalised by their
+    mean and biased variance in float32, then the per-channel affine; the
+    result in ``dtype`` (``None``: the input's). One ``F.layer_norm`` over
+    the NHWC view, which is contiguous for a ``channels_last`` map."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.dtype or x.dtype
+        y = x.to(torch.promote_types(x.dtype, torch.float32)).permute(0, 2, 3, 1)
+        y = F.layer_norm(y, (y.shape[-1],), self.weight.to(y.dtype), self.bias.to(y.dtype),
+                         self.eps)
+        return y.permute(0, 3, 1, 2).to(out_dtype)
+
+
 class _ConvParams(nn.Module):
-    """Bare OIHW weight (+ bias): the flax ``conv`` leaf level."""
+    """Bare OIHW weight (+ bias): the flax ``conv`` leaf level; a grouped
+    conv's I is its input channels over ``groups``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: Tuple[int, int], bias: bool):
         super().__init__()
@@ -184,16 +210,18 @@ def _int8_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 class Conv2d(nn.Module):
     """Conv with explicit symmetric padding; parameters under ``.conv``.
     ``s_x`` (a 0-d float32 buffer, not in the state dict) switches it to
-    :func:`_int8_conv`."""
+    :func:`_int8_conv` (``groups`` 1 only: ``models/quant.py`` never sets a
+    grouped conv's)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: IntPair,
                  stride: IntPair = 1, padding: IntPair = 0, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, groups: int = 1):
         super().__init__()
         self.stride = _pair(stride)
         self.padding = _pair(padding)
         self.dtype = dtype
-        self.conv = _ConvParams(in_ch, out_ch, _pair(kernel_size), bias)
+        self.groups = int(groups)
+        self.conv = _ConvParams(in_ch // self.groups, out_ch, _pair(kernel_size), bias)
         self.register_buffer("s_x", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,17 +229,26 @@ class Conv2d(nn.Module):
         if self.s_x is not None:
             return _int8_conv(x, w, b, self.s_x, self.stride, self.padding)
         if self.dtype is None:
-            return F.conv2d(x, w, b, self.stride, self.padding)
-        y = F.conv2d(x.to(self.dtype), w.to(self.dtype), None, self.stride, self.padding)
+            return F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
+        y = F.conv2d(x.to(self.dtype), w.to(self.dtype), None, self.stride, self.padding, 1,
+                     self.groups)
         return y if b is None else y + b.to(self.dtype).view(1, -1, 1, 1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init matching the JAX package's: glorot-uniform conv kernels
-    (torch xavier_uniform_), conv biases 0.01, BatchNorm at identity."""
+    (torch xavier_uniform_), conv biases 0.01, BatchNorm at identity. A
+    module with an ``init_own_weights(generator)`` method (the ConvNeXt
+    backbone) initialises itself and everything in it, in its turn."""
+    own = set()
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, _ConvParams):
+            if id(m) in own:
+                continue
+            if hasattr(m, "init_own_weights"):
+                m.init_own_weights(generator)
+                own.update(id(s) for s in m.modules())
+            elif isinstance(m, _ConvParams):
                 o, i, kh, kw = m.weight.shape
                 bound = math.sqrt(6.0 / ((i + o) * kh * kw))
                 m.weight.uniform_(-bound, bound, generator=generator)

@@ -13,7 +13,8 @@
 - **Selection**: by module name (the port's names are the JAX package's
   flax paths joined with dots, ``models/from_jax.py``). By default the stem
   convolutions and the neck's prediction emitters stay float, as in the JAX
-  package.
+  package. A grouped conv (ConvNeXt's depthwise 7x7) is never selected:
+  the int8 conv is an im2col over all input channels.
 """
 
 from __future__ import annotations
@@ -27,23 +28,26 @@ from .layers import Conv2d
 
 # the JAX package's DEFAULT_EXCLUDE, in the port's module names: the ResNet
 # stem convs, the custom backbone's stem, and the neck's RepBlocks that emit
-# the raw predictions decode reads
+# the raw predictions decode reads; and the ConvNeXt backbone's stem
 DEFAULT_EXCLUDE = (
     "feature_extractor.conv1.",
     "feature_extractor.conv2.",
     "feature_extractor.first_conv.",
     "rep_block2_1", "rep_block3_2", "rep_block4_1",
+    "feature_extractor.stem.",
 )
 
 
 def _convs(model: nn.Module) -> Dict[str, Conv2d]:
-    return {name: m for name, m in model.named_modules() if isinstance(m, Conv2d)}
+    """The convs that can run int8: every ungrouped ``Conv2d``."""
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, Conv2d) and m.groups == 1}
 
 
 def set_quant(model: nn.Module, scales: Dict[str, torch.Tensor]) -> nn.Module:
     """Run the convs named in ``scales`` in int8 at their ``s_x`` and every
     other conv in float; returns ``model``. ``set_quant(model, {})`` is the
-    float body again. Unknown names raise."""
+    float body again. Unknown names, and grouped convs, raise."""
     convs = _convs(model)
     unknown = sorted(set(scales) - set(convs))
     if unknown:

@@ -32,10 +32,11 @@ The JAX package's step settings:
   number of launches the capture recorded (``ops/cuda_graph.py``).
   ``load_checkpoint`` drops the graphs (the optimizer's state tensors are
   new). On the CPU the S steps run eagerly.
-- ``remat``: the train-mode forward runs its blocks (each ResNet or custom
-  backbone block, RepVGG block and conv + BatchNorm + activation unit of the
-  neck) under ``torch.utils.checkpoint`` with a selective policy that saves
-  only the convolutions' outputs and the dropout masks, as the JAX package's
+- ``remat``: the train-mode forward runs its blocks (each ResNet, custom or
+  ConvNeXt backbone block, RepVGG block and conv + BatchNorm + activation
+  unit of the neck) under ``torch.utils.checkpoint`` with a selective
+  policy that saves only the convolutions' outputs and the dropout and
+  stochastic-depth masks, as the JAX package's
   ``save_only_these_names("ayt_tape")`` does; the frontend's feature image
   is the first block's input. Every BatchNorm and activation inside a block
   is recomputed in the backward pass, just before the block's backward, with
@@ -79,7 +80,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
-from ..models.backbone import BasicBlock, Bottleneck, ExtractorLayer, ShardedRng
+from ..models.backbone import BasicBlock, Bottleneck, ConvNeXtBlock, ExtractorLayer, ShardedRng
 from ..models.layers import BatchNorm, ConvNorm, RepVGGBlock
 from ..ops.cuda_graph import clone, copy_into, count_replay, signature, warm_then_capture
 from ..parallel.dist import all_reduce_grads, gather_rows
@@ -93,7 +94,7 @@ TARGET_KEYS = ("classes", "centers", "widths", "valid", "clip_valid")
 # names every conv output); the dropout masks are kept so that the recompute
 # draws no random numbers
 _REMAT_SAVED = (torch.ops.aten.convolution.default, torch.ops.aten.bernoulli.p)
-_REMAT_UNITS = (BasicBlock, Bottleneck, ExtractorLayer, RepVGGBlock, ConvNorm)
+_REMAT_UNITS = (BasicBlock, Bottleneck, ExtractorLayer, ConvNeXtBlock, RepVGGBlock, ConvNorm)
 
 
 def _remat_policy(ctx, op, *args, **kwargs):

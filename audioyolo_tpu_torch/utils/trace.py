@@ -1,4 +1,4 @@
-"""Named spans of the port's host work, recorded only while a
+"""Named spans of the port's work, recorded only while a
 ``torch.profiler`` records in the process.
 
 ``with span("ayt.stream.read"): ...`` costs one read of the profiler's
@@ -16,9 +16,13 @@ The aggregate is process-wide, as the profiler is: ``totals()`` reads it and
 ``reset()`` clears it, so one profiled window holds exactly that window's
 spans when it is reset at the window's start, or is the process's first.
 
-A span encloses host work only: a range that encloses a kernel launch or a
-copy on the profiled thread gets a twin on the device's timeline under the
-span's name, which a reader of the trace would take for device work.
+A span may enclose launches (``ayt.model.*`` encloses a forward's): a range
+that encloses a kernel launch or a copy on the profiled thread gets a twin
+on the device's timeline under the span's name, spanning the device work
+launched inside it. The twin is an annotation, not device work:
+``perfbench/trace.py`` keeps it out of kernel and busy time, and reads the
+device's busy time inside each span's twins (``device_spans``). The host
+time counted here is the time to enqueue, not the device's.
 """
 
 from __future__ import annotations
