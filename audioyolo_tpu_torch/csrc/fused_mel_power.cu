@@ -37,11 +37,37 @@
 //    in shared memory for the whole CTA) add the chunk into a 64 x 32 fp32
 //    mel accumulator. Fixed summation order, no atomics, no split-K.
 //    128 x 256 x 64 per stage is 87 FLOP per byte brought in from L2.
+// 1'. stage_frames_kernel_resample, on the waveform path in place of 1:
+//    (B, S) int16/float32 at the dataset rate -> the same bf16 scratch
+//    (1, B*G, Fp) of non-overlapping frames at the model rate. Replaces no
+//    TPU kernel: the JAX package resamples with two float32 GEMMs over the
+//    dense polyphase bank (ops/resample.py), 96 % of whose entries are exact
+//    zeros. Output n (phase j = n % P) is the float32 FFMA chain, in tap
+//    order, of the bank's taps of phase j times x[(n / P) * Q + first[j] -
+//    width + t] (zero outside the clip; int16 read as x / 32768, the 2^-15
+//    in the bank). Bound by bytes: at B=32, 22,050 -> 16,000 Hz, it reads
+//    84.7 MB of int16 and writes 62.9 MB of bf16 (0.044 ms at 3.35 TB/s)
+//    for 1.0 GFLOP. The FMAs take their operands from shared memory, whose
+//    reads and the instructions around the FMAs bind, so the design keeps
+//    operands in registers: a run of 8 outputs has fixed phases and input
+//    offsets (the window bank, ops/resample.py::window_bank, holds their
+//    taps over one U-sample window, zeros elsewhere), and a thread computes
+//    one run in 8 rows (L = lcm(P, 8) outputs apart), so each window sample
+//    it loads serves 8 outputs and each tap 8. A persistent CTA copies the
+//    window bank to shared memory once; per unit (a clip's run of rows) the
+//    unit's input span arrives by 16-byte asynchronous copies, in the
+//    input's type, while the threads compute the unit before; the runs leave
+//    by 16-byte bf16 stores. The resampled float32 signal never reaches
+//    device memory. As built it takes ~2.2x its byte bound: shared-memory
+//    reads (the window bank's, and the input's 1.75-way bank conflicts)
+//    and their latency bind, not device memory (PERF.md §6).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -101,6 +127,252 @@ stage_frames_kernel(const T* __restrict__ x, __nv_bfloat16* __restrict__ xs, int
 #pragma unroll
   for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
   *reinterpret_cast<uint4*>(xs + q * Fp + k0) = *reinterpret_cast<const uint4*>(o);
+}
+
+// ------------------------------------------------ staging with resampling
+
+constexpr int RS_THREADS = 128;
+constexpr int RS_ROWS = 8;         // rows of one run a thread computes: each tap it loads serves 8
+constexpr int RS_STAGES = 2;       // input spans in shared memory: this unit's and the next
+constexpr int RS_MAX_WINDOW = 64;  // U: 28 at 22,050 -> 16,000 Hz, 56 at 44,100, 60 at 48,000
+constexpr int SMEM_LIMIT = 232448; // the most dynamic shared memory a block can use
+
+struct ResampleGeometry {
+  int B, S;          // clips, input samples a clip
+  int Q, P, width;   // input stride and output phases of the rate pair, the filter's half width
+  int L, R, U, LQ;   // outputs a row (lcm(P, 8)), runs of 8 a row, window, input samples a row
+  int F, Fp, G, N;   // frame length, padded, frames a clip, outputs a clip (G * F)
+  int rows, KR;      // rows a clip, rows a unit
+  int units_per_clip, n_units;
+  int span;          // elements of a unit's input span in shared memory
+};
+
+// int16 -> float32 exactly without a conversion instruction (16 a clock on
+// an SM): the bits of 2^23 + 2^15 + v (an integer add), less 2^23 + 2^15.
+__device__ __forceinline__ float to_float(int16_t v) {
+  return __int_as_float(static_cast<int>(v) + 0x4B008000) - 8421376.0f;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A unit is KR rows of one clip; its input span starts `shift` elements into
+// its buffer, whose first element is flat input element `fa` (16-byte aligned).
+struct UnitSpan {
+  int b, k0, nk, shift, len;
+  long long cs, fa;
+};
+
+template <typename T>
+__device__ __forceinline__ UnitSpan unit_span(const ResampleGeometry& g, const int* ssm, int unit,
+                                              int mis) {
+  constexpr int VEC = 16 / sizeof(T);
+  UnitSpan u;
+  u.b = unit / g.units_per_clip;
+  u.k0 = (unit - u.b * g.units_per_clip) * g.KR;
+  u.nk = min(g.KR, g.rows - u.k0);
+  u.cs = (long long)u.b * g.S;
+  const long long lo = u.cs + (long long)u.k0 * g.LQ + ssm[0] - g.width;  // the span's first sample
+  u.fa = ((lo + mis) & ~(long long)(VEC - 1)) - mis;
+  u.shift = (int)(lo - u.fa);
+  u.len = u.shift + (u.nk - 1) * g.LQ + ssm[g.R - 1] - ssm[0] + g.U;
+  return u;
+}
+
+// Start the copies of a unit's span into `buf`: 16 bytes at a time inside
+// the clip; zeros outside it, as the resampler's zero padding (the few
+// vectors across a clip's edge element by element).
+template <typename T>
+__device__ __forceinline__ void fetch_span(const T* __restrict__ x, T* buf, const ResampleGeometry& g,
+                                           const int* ssm, int unit, int mis) {
+  constexpr int VEC = 16 / sizeof(T);
+  const UnitSpan u = unit_span<T>(g, ssm, unit, mis);
+  for (int v = threadIdx.x; v * VEC < u.len; v += RS_THREADS) {
+    const long long f = u.fa + (long long)v * VEC;
+    T* dst = buf + v * VEC;
+    if (f >= u.cs && f + VEC <= u.cs + g.S) {
+      cp_async16(dst, x + f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const long long s = f + e - u.cs;
+        dst[e] = (s >= 0 && s < g.S) ? x[f + e] : T(0);
+      }
+    }
+  }
+}
+
+// Shared memory: the window bank (R runs, each 8 x U taps padded by 4
+// floats, so that neighbouring runs' 16-byte reads fall in other banks), the
+// runs' input starts, and a ring of RS_STAGES input spans in the input's
+// type: the copies of the next units' spans run while the threads compute
+// this one's. int16
+// samples enter as integers (the bank is scaled by 2^-15). Output n = k*L +
+// 8*run + e of clip b goes to scratch row b*G + n / F, column n % F.
+// `mis`: the input pointer's offset from 16 bytes, in elements.
+template <typename T>
+__global__ void __launch_bounds__(RS_THREADS)
+stage_frames_kernel_resample(const T* __restrict__ x, const float* __restrict__ wbank,
+                             const int* __restrict__ wstart, __nv_bfloat16* __restrict__ xs,
+                             const ResampleGeometry g, int mis) {
+  extern __shared__ __align__(16) float rs_smem[];
+  const int ws = 8 * g.U + 4;
+  float* wsm = rs_smem;
+  int* ssm = reinterpret_cast<int*>(rs_smem + g.R * ws);
+  T* spans = reinterpret_cast<T*>(rs_smem + g.R * ws + ((g.R + 3) & ~3));
+
+  const int quads = 2 * g.U;  // float4s of a run's taps, copied with the first unit's span
+  for (int i = threadIdx.x; i < g.R * quads; i += RS_THREADS) {
+    const int r = i / quads;
+    cp_async16(wsm + r * ws + 4 * (i - r * quads), wbank + 4 * i);
+  }
+  for (int i = threadIdx.x; i < g.R; i += RS_THREADS) ssm[i] = wstart[i];
+
+  // the zero columns [F, Fp) of every frame row, 16 bytes at a time where
+  // F is a multiple of 8
+  const int vec = g.F % 8 == 0 ? 8 : 1;
+  const int pad = (g.Fp - g.F) / vec;
+  for (int i = blockIdx.x * RS_THREADS + threadIdx.x; i < g.B * g.G * pad;
+       i += gridDim.x * RS_THREADS) {
+    const int row = i / pad;
+    __nv_bfloat16* o = xs + (long long)row * g.Fp + g.F + (i - row * pad) * vec;
+    if (vec == 8) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(0, 0, 0, 0);
+    } else {
+      *o = __float2bfloat16_rn(0.0f);
+    }
+  }
+  __syncthreads();  // the runs' starts, which place the spans
+
+  const int groups = g.KR / RS_ROWS;  // a run's rows r*groups + grp belong to task grp
+  const int tasks = g.R * groups;
+  // a task's rows are `step` outputs apart: step_f frames and step_c columns
+  const int step = groups * g.L, step_f = step / g.F, step_c = step - step_f * g.F;
+  for (int s = 0; s < RS_STAGES - 1; ++s) {
+    const int unit = blockIdx.x + s * gridDim.x;
+    if (unit < g.n_units) fetch_span(x, spans + s * g.span, g, ssm, unit, mis);
+    cp_async_commit();
+  }
+  int i = 0;
+  for (int unit = blockIdx.x; unit < g.n_units; unit += gridDim.x, ++i) {
+    const T* span = spans + (i % RS_STAGES) * g.span;
+    const int ahead = unit + (RS_STAGES - 1) * gridDim.x;
+    if (ahead < g.n_units) {
+      fetch_span(x, spans + ((i + RS_STAGES - 1) % RS_STAGES) * g.span, g, ssm, ahead, mis);
+    }
+    cp_async_commit();
+    cp_async_wait<RS_STAGES - 1>();  // this unit's copies have landed
+    __syncthreads();
+    const UnitSpan u = unit_span<T>(g, ssm, unit, mis);
+
+    for (int t = threadIdx.x; t < tasks; t += RS_THREADS) {
+      const int run = t % g.R;  // neighbouring threads: neighbouring runs, windows ~8Q/P apart
+      const int grp = t / g.R;
+      const float* w = wsm + run * ws;
+      const T* xr = span + u.shift + ssm[run] - ssm[0] + grp * g.LQ;
+      const int row_step = groups * g.LQ;
+      float acc[RS_ROWS][8];
+#pragma unroll
+      for (int r = 0; r < RS_ROWS; ++r) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
+      }
+      for (int u0 = 0; u0 < g.U; u0 += 4) {
+        float xv[RS_ROWS][4];
+#pragma unroll
+        for (int r = 0; r < RS_ROWS; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) xv[r][c] = to_float(xr[r * row_step + u0 + c]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + e * g.U + u0);
+#pragma unroll
+          for (int r = 0; r < RS_ROWS; ++r) {
+            acc[r][e] = __fmaf_rn(wv.x, xv[r][0], acc[r][e]);
+            acc[r][e] = __fmaf_rn(wv.y, xv[r][1], acc[r][e]);
+            acc[r][e] = __fmaf_rn(wv.z, xv[r][2], acc[r][e]);
+            acc[r][e] = __fmaf_rn(wv.w, xv[r][3], acc[r][e]);
+          }
+        }
+      }
+      const long long clip_row = (long long)u.b * g.G;
+      int n0 = (u.k0 + grp) * g.L + 8 * run;
+      int fr = n0 / g.F, col = n0 - fr * g.F;
+#pragma unroll
+      for (int r = 0; r < RS_ROWS; ++r, n0 += step, fr += step_f, col += step_c) {
+        if (col >= g.F) {
+          col -= g.F;
+          ++fr;
+        }
+        if (grp + r * groups >= u.nk || n0 >= g.N) continue;
+        if (g.F % 8 == 0) {  // the run lies in one frame row, 16-byte aligned
+          __align__(16) __nv_bfloat162 o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(acc[r][2 * e], acc[r][2 * e + 1]);
+          *reinterpret_cast<uint4*>(xs + (clip_row + fr) * g.Fp + col) = *reinterpret_cast<const uint4*>(o);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int n = n0 + e;
+            if (n < g.N) {
+              const int fr = n / g.F;
+              xs[(clip_row + fr) * g.Fp + (n - fr * g.F)] = __float2bfloat16_rn(acc[r][e]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the span is read before a later fetch overwrites it
+  }
+}
+
+// A unit: `groups` tasks of RS_ROWS rows for each of the R runs, as many as
+// the threads take and shared memory holds (the window bank, the runs'
+// starts and RS_STAGES input spans of `elem`-byte samples). Sets g.KR and
+// g.span from g.R, g.U and g.LQ; returns the shared memory bytes, 0 where
+// not even one group fits.
+size_t resample_unit(ResampleGeometry& g, int elem) {
+  for (int groups = std::max(1, RS_THREADS / g.R); groups > 0; --groups) {
+    g.KR = RS_ROWS * groups;
+    g.span = (g.KR * g.LQ + g.U + 2 * (16 / elem) + 7) / 8 * 8;
+    const size_t smem = ((size_t)g.R * (8 * g.U + 4) + ((g.R + 3) & ~3)) * sizeof(float) +
+                        (size_t)RS_STAGES * g.span * elem;
+    if (smem <= SMEM_LIMIT) return smem;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_resample(const void* x, const void* wbank, const void* wstart, void* xs,
+                    const ResampleGeometry& g, size_t smem, cudaStream_t stream) {
+  const auto kernel = stage_frames_kernel_resample<T>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RS_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (int)std::min<long long>(g.n_units, (long long)sms * std::max(per_sm, 1));
+  const int mis = (int)((reinterpret_cast<uintptr_t>(x) / sizeof(T)) % (16 / sizeof(T)));
+  kernel<<<grid, RS_THREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const float*>(wbank),
+                                             static_cast<const int*>(wstart),
+                                             static_cast<__nv_bfloat16*>(xs), g, mis);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------- barriers, TMA, wgmma
@@ -425,6 +697,62 @@ extern "C" int ayt_stage_frames(const void* x, int x_is_int16, void* xs, int B, 
     stage_frames_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x), o, M, R, G, F, Fp);
   }
   return (int)cudaGetLastError();
+}
+
+// x: (B, S) float32 or int16 at the input rate, contiguous. wbank: (R, 8,
+// U) float32, wstart: (R,) int32 (ops/resample.py::window_bank for the rate
+// pair Q:P, L = 8R a multiple of P; for int16 input the bank times 2^-15,
+// the samples read as integers), 16-byte aligned. xs: (1, B*G, Fp) bf16,
+// G = ceil(P*S/Q) / F frames of F samples at the output rate. Fp % 8 == 0.
+extern "C" int ayt_stage_frames_resample(const void* x, int x_is_int16, const void* wbank,
+                                         const void* wstart, void* xs, int B, int S, int Q, int P,
+                                         int width, int R, int U, int F, int Fp, void* stream) {
+  if (B <= 0 || S <= 0 || Q <= 0 || P <= 0 || width < 0 || R <= 0 || (8 * R) % P != 0 || U <= 0 ||
+      U % 4 != 0 || U > RS_MAX_WINDOW || F <= 0 || F > Fp || Fp % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ResampleGeometry g;
+  g.B = B;
+  g.S = S;
+  g.Q = Q;
+  g.P = P;
+  g.width = width;
+  g.L = 8 * R;
+  g.R = R;
+  g.U = U;
+  g.LQ = g.L / P * Q;
+  g.F = F;
+  g.Fp = Fp;
+  const long long target = ((long long)P * S + Q - 1) / Q;
+  if (target / F == 0 || (long long)g.L * ((target + g.L - 1) / g.L) > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  g.G = (int)(target / F);
+  g.N = g.G * F;
+  g.rows = (g.N + g.L - 1) / g.L;
+  const size_t smem = resample_unit(g, x_is_int16 ? 2 : 4);
+  if (smem == 0 || (long long)B * g.G * (Fp - F) > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  g.units_per_clip = (g.rows + g.KR - 1) / g.KR;
+  g.n_units = B * g.units_per_clip;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return x_is_int16 ? launch_resample<int16_t>(x, wbank, wstart, xs, g, smem, s)
+                    : launch_resample<float>(x, wbank, wstart, xs, g, smem, s);
+}
+
+// Whether ayt_stage_frames_resample takes the window bank of R runs of U
+// samples for the rate pair Q:P, with float32 input (int16 needs less
+// shared memory): 1 or 0. It asks nothing of the card.
+extern "C" int ayt_stage_frames_resample_fits(int R, int U, int Q, int P) {
+  if (R <= 0 || P <= 0 || Q <= 0 || (8 * R) % P != 0 || U <= 0 || U % 4 != 0 || U > RS_MAX_WINDOW) {
+    return 0;
+  }
+  ResampleGeometry g;
+  g.R = R;
+  g.U = U;
+  g.LQ = 8 * R / P * Q;
+  return resample_unit(g, 4) != 0;
 }
 
 // xs: (R, B*G, Fp) bf16 from ayt_stage_frames. ct: (R, Np, Fp) bf16 = C_r^T,

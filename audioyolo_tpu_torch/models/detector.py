@@ -17,8 +17,9 @@ asks for). As in the JAX package the frontend runs as it always does, its
 feature image is cast to ``dtype``, and decode casts back to float32, so the
 NMS and the loss see float32. Parameters stay float32 in every dtype.
 
-Spans (``utils/trace.py``): ``ayt.model.backbone`` and ``ayt.model.neck``
-around the two calls, recorded only while a profiler records.
+Spans (``utils/trace.py``): ``ayt.model.frontend``, ``ayt.model.backbone``
+and ``ayt.model.neck`` around the three calls, recorded only while a
+profiler records.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ class AudioDetectionModel(nn.Module):
         if features is None:
             if audio is None:
                 raise ValueError("provide either audio or features")
-            with torch.no_grad():
+            with torch.no_grad(), span("ayt.model.frontend"):
                 features = self.frontend(audio)
         if self.dtype is not None:
             features = features.to(self.dtype)

@@ -17,10 +17,11 @@ from typing import Callable, Tuple
 
 import torch
 
-from .mel_kernel import fused_mel_power
+from .mel_kernel import fused_mel_power, stage_frames_resample
 from .nms_kernel import greedy_suppress_blocked, greedy_suppress_unblocked
 
-COUNTERS = (fused_mel_power, greedy_suppress_blocked, greedy_suppress_unblocked)
+COUNTERS = (fused_mel_power, greedy_suppress_blocked, greedy_suppress_unblocked,
+            stage_frames_resample)
 
 
 def copy_into(dst, src) -> None:

@@ -22,7 +22,11 @@ resampler at ``HIGHEST``, and the port keeps the 32 x 32 DCT float32 as kernel
   on CUDA tensors, and its plain version on CPU tensors, for phase-grouped
   frames and the waveform path's frames alike (there with one phase and the
   window-folded DFT matrix); power other than 2 takes the GEMMs, as the JAX
-  package falls back to its GEMM pair.
+  package falls back to its GEMM pair. On the card, a waveform at another
+  rate than the model's, cut into non-overlapping frames (``hop == n_fft``,
+  no centering, no taper, one shared mel config), skips the resampler's
+  GEMMs: kernel 1's staging pass resamples it (``mel_kernel.ResampleStage``,
+  the same float32 taps, summed in float32) as it rounds the frames to bf16.
 - ``bf16``: ``default`` with the phase-grouped spectrum stored in bf16.
 - ``int8``: ``default``, and the ``(q, scale)`` frames of
   :meth:`SpectralFrontend.frame_host_int8` go through an int8 x int8 ->
@@ -42,7 +46,7 @@ from torch import nn
 
 from ..config import Config, load_config
 from .int8 import _round_up
-from .mel_kernel import MelKernelFrontend
+from .mel_kernel import MelKernelFrontend, ResampleStage, mel_power_staged
 from .resample import Resampler
 
 # --------------------------------------------------------------------------
@@ -335,6 +339,17 @@ class SpectralFrontend(nn.Module):
         self.register_buffer("taper", taper, persistent=False)
         self.scale_input = bool(cfg.raw.get("scale_input", True))
 
+        # Kernel 1 stages the waveform straight from the dataset rate where
+        # the frames do not overlap (forward takes it for CUDA tensors, where
+        # the kernel takes the rate pair)
+        self.resample_stage = None
+        if (self.use_kernel and self.sr_in != self.sr_model and self.taper is None
+                and not self.mel.center and self.mel.hop == self.mel.n_fft and self.shared_mel):
+            r = self.resampler
+            self.resample_stage = ResampleStage(
+                r.kernel[:, 0].numpy(), r.width, r.q, r.p, self.mel.n_fft,
+                self.mel.kernel.ct.shape[-1])
+
         # Fused resample+frame+DFT path for phase-grouped frames: eligible
         # for non-overlapping frames, no centering or taper, one shared mel
         # config (the shipped config).
@@ -439,12 +454,25 @@ class SpectralFrontend(nn.Module):
             return self._images(self.fused.reorder_frames(mel_rg), None)
         if audio.dim() == 3:
             audio = audio[:, 0, :]
+        if self._kernel_resamples(audio):
+            audio = audio.contiguous()
+            k = self.mel.kernel
+            mel = mel_power_staged(self.resample_stage(audio), k.ct, k.mel2t, audio.shape[0],
+                                   self.resample_stage.frames(audio.shape[-1]))
+            return self._images(mel[:, 0], None)
         if not audio.is_floating_point():
             audio = audio.float() * (1.0 / 32768.0)
         x = self.resampler(audio.float())
         if self.taper is not None:
             x = x * self.taper[None, :]
         return self._images(self.mel(x), x)
+
+    def _kernel_resamples(self, audio: torch.Tensor) -> bool:
+        """Whether kernel 1's staging pass resamples this (B, S) waveform:
+        an int16 or float32 tensor on the card, where the configuration
+        built a :class:`ResampleStage` whose rate pair the kernel takes."""
+        return (self.resample_stage is not None and audio.is_cuda
+                and audio.dtype in (torch.int16, torch.float32) and self.resample_stage.fits())
 
     def _images(self, mel_power: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
         """(B, T, M) mel power (+ waveform for a non-shared MFCC branch) ->

@@ -14,11 +14,18 @@ The constants are K-major: ``ct`` = C_r^T (R, Np, Fp) and ``mel2t`` =
 (the kernels for a CUDA tensor, the plain versions only for a CPU tensor),
 each pass a registered torch op; ``fused_mel_power.launches`` counts the
 main pass's launches, one per run of kernel 1.
+
+On the waveform path the staging pass can take the waveform at the dataset
+rate and resample it too (``stage_frames_resample``, held by
+:class:`ResampleStage`): each output is the float32 FMA chain of its
+phase's taps of the resampler's bank (``ops/resample.py``) over the input,
+rounded to bf16 into the same scratch, for non-overlapping frames.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import build
+from .resample import polyphase_taps, window_bank
 
 N_MELS = 32    # the kernel's output width (NMEL in csrc/fused_mel_power.cu)
 K_TILE = 64    # frames and C^T are zero-padded along K (samples) to a multiple of this
@@ -35,6 +43,12 @@ MAX_NP = 1024  # the kernel holds [M; M]^T whole in shared memory
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def resampled_frames(s: int, q: int, p: int, n_fft: int) -> int:
+    """Frames of ``n_fft`` samples, ``hop == n_fft``, in the ``ceil(p*s/q)``
+    samples that resampling ``s`` input samples by ``p/q`` gives."""
+    return (-(-p * s // q)) // n_fft
 
 
 def stage_frames_plain(framed: torch.Tensor, fp: int) -> torch.Tensor:
@@ -64,6 +78,45 @@ def fused_mel_power_plain(framed: torch.Tensor, ct: torch.Tensor,
     """
     b, _, g, _ = framed.shape
     return mel_power_staged_plain(stage_frames_plain(framed, ct.shape[-1]), ct, mel2t, b, g)
+
+
+def resample_frames_plain(wave: torch.Tensor, wbank: torch.Tensor, wstart: torch.Tensor,
+                          q: int, p: int, width: int, n_fft: int) -> torch.Tensor:
+    """Plain version of the resampling staging pass before its rounding:
+    ``wave`` (B, S) or (B, 1, S) int16 or float32 at the input rate,
+    ``wbank`` (R, 8, U) float32 and ``wstart`` (R,) int32 from
+    ``ops/resample.py::window_bank`` -> (B, G, n_fft) float32, the resampled
+    signal's non-overlapping frames. int16 samples enter as integers: the
+    bank for them is scaled by 2^-15 (``ResampleStage.wbank_i16``), which
+    gives x / 32768 times the taps exactly. Each run of 8 outputs is the
+    kernel's float32 FMA chain over its window, in the kernel's order: the
+    product is exact in float64 and the float64 sum is rounded to float32
+    each step."""
+    b, s = wave.shape[0], wave.shape[-1]
+    x = wave.reshape(b, s).float()
+    runs, _, window = wbank.shape
+    row = 8 * runs
+    g = resampled_frames(s, q, p, n_fft)
+    n0 = torch.arange(0, g * n_fft, 8, device=x.device)
+    run = (n0 % row) // 8
+    start = (n0 // row) * (row // p * q) + wstart.to(x.device).long()[run]  # padded by width
+    right = max(0, int(start.max()) + window - s - width) if n0.numel() else 0
+    xp = F.pad(x, (width, right))
+    acc = torch.zeros((b, n0.numel(), 8), dtype=torch.float32, device=x.device)
+    w64 = wbank.to(x.device).double()
+    for u in range(window):
+        prod = w64[run, :, u][None] * xp[:, start + u].double()[..., None]
+        acc = (acc.double() + prod).float()
+    return acc.reshape(b, -1)[:, : g * n_fft].reshape(b, g, n_fft)
+
+
+def stage_frames_resample_plain(wave: torch.Tensor, wbank: torch.Tensor, wstart: torch.Tensor,
+                                q: int, p: int, width: int, n_fft: int, fp: int) -> torch.Tensor:
+    """Plain version of the resampling staging pass: arguments as in
+    :func:`resample_frames_plain` -> (1, B*G, fp) bf16, the scratch that
+    :func:`stage_frames_plain` makes of the resampled frames."""
+    return stage_frames_plain(resample_frames_plain(wave, wbank, wstart, q, p, width,
+                                                    n_fft)[:, None], fp)
 
 
 def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -168,6 +221,73 @@ def _mel_power_staged_cuda(xs, ct, mel2t, b, g):
     return out
 
 
+@torch.library.custom_op("audioyolo_tpu_torch::stage_frames_resample", mutates_args=(),
+                         device_types="cpu")
+def _stage_frames_resample_op(wave: torch.Tensor, wbank: torch.Tensor, wstart: torch.Tensor,
+                              q: int, p: int, width: int, n_fft: int, fp: int) -> torch.Tensor:
+    return stage_frames_resample_plain(wave, wbank, wstart, q, p, width, n_fft, fp)
+
+
+@_stage_frames_resample_op.register_fake
+def _(wave, wbank, wstart, q, p, width, n_fft, fp):
+    g = resampled_frames(wave.shape[-1], q, p, n_fft)
+    return wave.new_empty((1, wave.shape[0] * g, fp), dtype=torch.bfloat16)
+
+
+@_stage_frames_resample_op.register_kernel("cuda")
+def _stage_frames_resample_cuda(wave, wbank, wstart, q, p, width, n_fft, fp):
+    if (wave.dim() not in (2, 3) or (wave.dim() == 3 and wave.shape[1] != 1)
+            or wave.dtype not in (torch.float32, torch.int16) or not wave.is_contiguous()):
+        raise ValueError(f"wave must be a contiguous (B, S) or (B, 1, S) float32/int16 tensor, "
+                         f"got {tuple(wave.shape)} {wave.dtype}")
+    runs, window = wbank.shape[0], wbank.shape[-1]
+    if (wbank.dim() != 3 or wbank.shape[1] != 8 or wbank.dtype != torch.float32
+            or not resample_stage_fits(runs, window, q, p)):
+        raise ValueError(f"wbank must be (L/8, 8, U) float32 with L a multiple of p={p}, in a "
+                         f"window the kernel takes, got {tuple(wbank.shape)} {wbank.dtype}")
+    if tuple(wstart.shape) != (runs,) or wstart.dtype != torch.int32:
+        raise ValueError(f"wstart must be ({runs},) int32, got {tuple(wstart.shape)} {wstart.dtype}")
+    if fp % 8 or n_fft > fp:
+        raise ValueError(f"fp={fp} must be a multiple of 8 and >= n_fft={n_fft}")
+    _check_cuda("wbank", wbank, wave.device)
+    _check_cuda("wstart", wstart, wave.device)
+    b, s = wave.shape[0], wave.shape[-1]
+    xs = torch.empty((1, b * resampled_frames(s, q, p, n_fft), fp), device=wave.device,
+                     dtype=torch.bfloat16)
+    if xs.numel() == 0:
+        return xs
+    fn = build.function("fused_mel_power", "ayt_stage_frames_resample",
+                        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    with torch.cuda.device(wave.device):
+        err = fn(wave.data_ptr(), int(wave.dtype == torch.int16), wbank.data_ptr(),
+                 wstart.data_ptr(), xs.data_ptr(), b, s, q, p, width, runs, window, n_fft, fp,
+                 _stream(wave))
+    build.check_launch(err, "stage_frames_resample")
+    stage_frames_resample.launches += 1
+    return xs
+
+
+def resample_stage_fits(runs: int, window: int, q: int, p: int) -> bool:
+    """Whether the resampling staging pass takes a window bank of ``runs``
+    runs of ``window`` samples for the rate pair ``q:p`` (its window bound
+    and shared memory; the kernel's launcher decides, and the kernel builds
+    on the first call)."""
+    fn = build.function("fused_mel_power", "ayt_stage_frames_resample_fits", [ctypes.c_int] * 4)
+    return bool(fn(runs, window, q, p))
+
+
+def stage_frames_resample(wave: torch.Tensor, wbank: torch.Tensor, wstart: torch.Tensor,
+                          q: int, p: int, width: int, n_fft: int, fp: int) -> torch.Tensor:
+    """The resampling staging pass: the kernel for a CUDA tensor (each launch
+    counts one in ``stage_frames_resample.launches``), the plain version for
+    a CPU tensor. Arguments as in :func:`stage_frames_resample_plain`."""
+    return _stage_frames_resample_op(wave, wbank, wstart, q, p, width, n_fft, fp)
+
+
+stage_frames_resample.launches = 0
+
+
 def stage_frames(framed: torch.Tensor, fp: int) -> torch.Tensor:
     """The staging pass: the kernel for a CUDA tensor, the plain version for
     a CPU tensor. Arguments as in :func:`stage_frames_plain`."""
@@ -242,3 +362,44 @@ class MelKernelFrontend(nn.Module):
         """(B, R, G, F) float32/int16 frames -> (B, R, G, n_mels) mel power."""
         ct = self.ct_i16 if framed.dtype == torch.int16 else self.ct
         return fused_mel_power(framed, ct, self.mel2t)
+
+
+class ResampleStage(nn.Module):
+    """Kernel 1's staging pass with the resampler in it, for non-overlapping
+    frames of ``n_fft`` samples at the output rate: the window bank of the
+    resampler's float32 bank (``kernel`` (P, K), the rate pair ``q:p``, half
+    width ``width``) held as (non-persistent) buffers ``wbank``
+    (``wbank_i16``, scaled by 2^-15, for int16 input) and ``wstart``.
+    :meth:`fits` asks the kernel's launcher, once, whether it takes the
+    rate pair (its window bound and shared memory)."""
+
+    def __init__(self, kernel: np.ndarray, width: int, q: int, p: int, n_fft: int, fp: int):
+        super().__init__()
+        wbank, wstart = window_bank(*polyphase_taps(kernel), q, p)
+        self.q, self.p, self.width, self.n_fft, self.fp = q, p, width, n_fft, fp
+        self.register_buffer("wbank", torch.from_numpy(wbank), persistent=False)
+        self.register_buffer("wbank_i16", torch.from_numpy(wbank * np.float32(1.0 / 32768.0)),
+                             persistent=False)
+        self.register_buffer("wstart", torch.from_numpy(wstart), persistent=False)
+        self._fits: Optional[bool] = None
+
+    def fits(self) -> bool:
+        """Whether the kernel takes this rate pair (asked on the first call;
+        builds the kernel's library there, so call it only on the card)."""
+        if self._fits is None:
+            runs, _, window = self.wbank.shape
+            self._fits = resample_stage_fits(runs, window, self.q, self.p)
+        return self._fits
+
+    def frames(self, s: int) -> int:
+        return resampled_frames(s, self.q, self.p, self.n_fft)
+
+    def bank(self, dtype: torch.dtype) -> torch.Tensor:
+        """The window bank for input of ``dtype``."""
+        return self.wbank_i16 if dtype == torch.int16 else self.wbank
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        """(B, S) or (B, 1, S) int16/float32 waveform at the input rate ->
+        (1, B*G, fp) bf16 scratch for the main pass."""
+        return stage_frames_resample(wave, self.bank(wave.dtype), self.wstart, self.q, self.p,
+                                     self.width, self.n_fft, self.fp)

@@ -50,6 +50,54 @@ def sinc_resample_kernel(
     return kernel.astype(dtype), width
 
 
+def polyphase_taps(kernel: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The bank's nonzero taps: ``(P, T)`` float32, each phase's taps from its
+    first nonzero entry to its last, zero-padded to a common ``T``, and
+    ``(P,)`` int32, the column of each phase's first nonzero entry. The
+    entries left out are exact float32 zeros (the clipped sinc underflows),
+    so a sum over the taps equals the sum over the bank's row."""
+    k = np.asarray(kernel, np.float32)
+    nz = k != 0
+    first = nz.argmax(axis=1)
+    last = k.shape[1] - 1 - nz[:, ::-1].argmax(axis=1)
+    n = last - first + 1
+    taps = np.zeros((k.shape[0], int(n.max())), np.float32)
+    for j in range(k.shape[0]):
+        taps[j, : n[j]] = k[j, first[j]: last[j] + 1]
+    return taps, first.astype(np.int32)
+
+
+def window_bank(taps: np.ndarray, first: np.ndarray, q: int, p: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """The taps laid out per run of 8 outputs, as kernel 1's resampling
+    staging pass reads them.
+
+    Output ``n`` (phase ``j = n % p``) reads inputs from ``s(n) - width``
+    on, ``s(n) = (n // p) * q + first[j]``. The ``L = lcm(p, 8)`` outputs
+    of a row repeat with the input advanced by ``L / p * q``, so a run of 8
+    outputs starting at ``8 * r`` (mod ``L``) has fixed phases and fixed
+    input offsets ``s(8r + e) - s(8r)``. Returns ``wbank`` (L/8, 8, U)
+    float32, output ``e``'s taps at its offset and exact zeros elsewhere
+    (``U``, the widest run's input window, rounded up to 4), and ``wstart``
+    (L/8,) int32, ``s(8r)``."""
+    taps = np.asarray(taps, np.float32)
+    first = np.asarray(first, np.int64)
+    n_taps = taps.shape[1]
+    runs = p * 8 // math.gcd(p, 8) // 8
+    n = np.arange(8 * runs)
+    s = (n // p) * q + first[n % p]
+    offsets = (s.reshape(runs, 8) - s[::8, None])
+    if offsets.min() < 0:
+        raise ValueError("the bank's first nonzero taps do not advance with the phase")
+    width = -(-(int(offsets.max()) + n_taps) // 4) * 4
+    wbank = np.zeros((runs, 8, width), np.float32)
+    for r in range(runs):
+        for e in range(8):
+            d = offsets[r, e]
+            wbank[r, e, d: d + n_taps] = taps[(8 * r + e) % p]
+    return wbank, s[::8].astype(np.int32)
+
+
 class Resampler(nn.Module):
     """Stateless resampler; the filter bands are non-persistent buffers."""
 

@@ -15,7 +15,12 @@ Phases, each of which raises on failure:
    main pass) against its plain version on the card, at the serving batch
    (B=32) for int16 and float32 frames, a ragged B=3 and the waveform path's
    frames; the staging pass bit for bit; times of each pass and of both
-   against the bound and the bf16 ``torch.matmul`` pair;
+   against the bound and the bf16 ``torch.matmul`` pair; then the waveform
+   path's resampling staging pass (``phase_resample``, B=32 of 60 s at
+   22 050 Hz, int16 and float32) against its plain version and against the
+   chain it replaces (the resampler's GEMMs, the frames, the staging
+   kernel), its device time beside its bound, the plain version's and the
+   chain's, and the frontend's card time a batch on both paths;
 4. kernels 2 and 3 (greedy interval NMS, chunked and row by row) against
    the plain version, bit for bit, on random, near-threshold, chained and
    non-finite intervals at (32, 630), (256, 630), (8, 630), (1, 630),
@@ -401,6 +406,137 @@ def phase_mel(dev, card):
     return res
 
 
+def _bf16_ulps(a, b):
+    """bf16 steps between two bf16 tensors of the same shape."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _bf16_half_step(t):
+    """Half a bf16 step at each value of a bf16 tensor (0 at 0), float64."""
+    import torch
+
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t.float()), e - 9)).double()
+
+
+def _busy_ms(fn, iters=20, warmup=3):
+    """The device's busy milliseconds per call of ``fn`` (every kernel, copy
+    and set it launches), from a profiler trace of ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for s, e in ops:
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return busy / iters / 1e6
+
+
+def phase_resample(dev, card):
+    """Kernel 1's resampling staging pass on the waveform path at B=32, 60 s
+    at 22,050 Hz: against its plain version and against the chain it
+    replaces (the resampler's float32 GEMMs, the frames, the staging
+    kernel), bf16 scratch equal but for rounding boundaries; its device
+    time beside its bound (bytes: the input read once, the scratch written
+    once), the plain version's and the chain's; the frontend's card time
+    a batch on both paths."""
+    import numpy as np
+    import torch
+
+    from audioyolo_tpu_torch.ops.frontend import SpectralFrontend, frame_signal
+    from audioyolo_tpu_torch.ops.mel_kernel import (stage_frames, stage_frames_resample,
+                                                    stage_frames_resample_plain)
+
+    cfg = _serving_config()
+    fe = SpectralFrontend(cfg).to(dev)
+    st, r = fe.resample_stage, fe.resampler
+    assert st is not None, "the shipped config builds no resampling staging pass"
+    rng = np.random.default_rng(5)
+    wav = (rng.standard_normal((BATCH, 1, cfg.clip_samples)) * 0.1).astype(np.float32)
+    wav16 = np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+    wav16[0, 0, :2] = (-32768, 32767)
+    nonzero = (r.kernel != 0).sum().item() / r.p  # nonzero taps a phase, on average
+    res = {}
+    for name, x_np in (("int16", wav16), ("float32", wav)):
+        x = torch.from_numpy(x_np).to(dev)
+        before = stage_frames_resample.launches
+        xs = st(x)
+        torch.cuda.synchronize()
+        assert stage_frames_resample.launches == before + 1
+
+        def frames():  # the parent's waveform path up to kernel 1's staging
+            xf = x[:, 0].float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x[:, 0]
+            return frame_signal(r(xf), fe.mel.n_fft, fe.mel.hop, False, "reflect")
+
+        def chain():
+            return stage_frames(frames().contiguous()[:, None], st.fp)
+
+        def plain():
+            return stage_frames_resample_plain(x, st.bank(x.dtype), st.wstart, st.q, st.p,
+                                               st.width, st.n_fft, st.fp)
+
+        f32 = torch.nn.functional.pad(frames(), (0, st.fp - st.n_fft)).reshape(xs.shape)
+        gap = 1e-6 * f32.abs().max().item()  # float32 sums of the same products, another order
+        got = {}
+        for what, ref in (("plain", plain()), ("chain", chain())):
+            torch.cuda.synchronize()
+            off = xs != ref
+            share = off.float().mean().item()
+            ulps = _bf16_ulps(xs[off], ref[off]).max().item() if off.any() else 0
+            worst = ((xs[off].double() - f32[off].double()).abs()
+                     - _bf16_half_step(xs[off])).max().item() if off.any() else 0.0
+            assert share <= (1e-6 if what == "plain" else 1e-4) and worst <= gap, \
+                f"resampling staging ({name}) against its {what}: {share:.3e} off, {ulps} " \
+                f"steps, {worst:.3e} past rounding (gap {gap:.3e})"
+            got[what] = (share, ulps)
+        del f32
+        ms = device_ms(lambda: st(x), "stage_frames_kernel_resample")
+        call_ms = time_ms(lambda: st(x))
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = _busy_ms(chain)
+        nbytes = x.numel() * x.element_size() + xs.numel() * 2
+        flops = 2 * xs.shape[1] * st.n_fft * nonzero
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32)
+        res[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, off_plain=got["plain"][0],
+                         off_chain=got["chain"][0])
+        log(f"[kernel 1 resampling staging {name} {tuple(x.shape)}] off its plain version "
+            f"{got['plain'][0]:.3e} ({got['plain'][1]} steps at most), off the chain "
+            f"{got['chain'][0]:.3e} ({got['chain'][1]} steps at most, each the rounding of a "
+            f"float32 sum within {gap:.2e}); "
+            f"kernel {ms:.4f} ms (call {call_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {bound_ms / ms:.1%} of the bound; "
+            f"plain {plain_ms:.4f} ms; the chain it replaces {lib_ms:.4f} ms busy [{card}]")
+        del xs
+        with torch.no_grad():
+            new_ms = _busy_ms(lambda: fe(x))
+            fe.resample_stage = None
+            old_ms = _busy_ms(lambda: fe(x))
+            fe.resample_stage = st
+        res[name].update(frontend_ms=new_ms, frontend_parent_ms=old_ms)
+        log(f"[frontend {name} B={BATCH}] card busy {new_ms:.4f} ms a batch, "
+            f"{old_ms:.4f} ms on the parent's path [{card}]")
+        del x
+    return res
+
+
 def _near_threshold(thr, n):
     """Pairs [0, 1] and [a, b] whose float32 IoU is one ulp below, on and one
     ulp above ``thr``, repeated to ``n`` intervals."""
@@ -714,9 +850,10 @@ def phase_serving(dev, card):
                       for i, (name, sec, rate, seed) in enumerate(requests)]
             with urllib.request.urlopen(url + "/health", timeout=60) as r:
                 assert json.loads(r.read()) == {"status": "ok"}
-            mel_kernel.fused_mel_power.launches = 0
-            nms_kernel.greedy_suppress_blocked.launches = 0
-            nms_kernel.greedy_suppress_unblocked.launches = 0
+            counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                        nms_kernel.greedy_suppress_unblocked, mel_kernel.stage_frames_resample)
+            for c in counters:
+                c.launches = 0
             for name, sec, body in bodies:
                 t0 = time.perf_counter()
                 req = urllib.request.Request(url + "/detect", data=body, method="POST")
@@ -731,11 +868,7 @@ def phase_serving(dev, card):
                     assert a["class"] != b["class"], "events must be RLE-merged"
                 log(f"[serving] {name}: 200, {len(out['rows'])} rows, {len(out['events'])} "
                     f"events, {dt * 1e3:.1f} ms, {sec / dt:.1f} audio-s/s [{card}]")
-            counts = {
-                "fused_mel_power": mel_kernel.fused_mel_power.launches,
-                "greedy_suppress_blocked": nms_kernel.greedy_suppress_blocked.launches,
-                "greedy_suppress_unblocked": nms_kernel.greedy_suppress_unblocked.launches,
-            }
+            counts = {c.__name__: c.launches for c in counters}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -925,7 +1058,7 @@ def phase_training(dev, card, tmp):
 
     # one epoch through the CLI's run(), one through the trainer itself
     counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
-                nms_kernel.greedy_suppress_unblocked)
+                nms_kernel.greedy_suppress_unblocked, mel_kernel.stage_frames_resample)
     for c in counters:
         c.launches = 0
     # the shipped compute_dtype (bfloat16) trains a bf16 body, with no
@@ -1002,7 +1135,7 @@ def phase_training(dev, card, tmp):
     assert [n for n, _, _ in caches] == [TRAIN_CLIPS, EVAL_CLIPS], caches
     assert framed_reads[0] == sum(builds) == caches[-1][2], (framed_reads, builds, caches)
     res["cache_mb"] = [b / 1e6 for _, b, _ in caches]
-    res["train_launches"] = counts["fused_mel_power"]
+    res["train_launches"] = counts
     seen = set()
     hooks = [m.register_forward_hook(lambda mod, inp, out: seen.add(out.dtype))
              for m in cli_trainer.model.modules() if isinstance(m, Conv2d)]
@@ -1403,7 +1536,7 @@ def phase_inference(dev, card, train_tmp):
                weights[".pth.tar"])
 
     counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
-                nms_kernel.greedy_suppress_unblocked)
+                nms_kernel.greedy_suppress_unblocked, mel_kernel.stage_frames_resample)
     conf_thr, iou_thr = 0.2, 0.1
     rec = _RowRecorder()
 
@@ -1751,13 +1884,15 @@ def phase_bf16_serving(dev, card):
     x = torch.from_numpy(fe.frame_host(clips)).to(dev)
     fns["bf16"](x)  # warm-up
     torch.cuda.synchronize()
-    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked)
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                mel_kernel.stage_frames_resample)
     for c in counters:
         c.launches = 0
     packed = {"bf16": fns["bf16"](x)}
     torch.cuda.synchronize()
     counts = {c.__name__: c.launches for c in counters}
-    assert all(v == 1 for v in counts.values()), counts
+    assert counts == {"fused_mel_power": 1, "greedy_suppress_blocked": 1,
+                      "stage_frames_resample": 0}, counts  # framed input
     packed["f32"] = fns["f32"](x)
     ms = {k: time_ms(lambda k=k: fns[k](x), iters=10) for k in ("f32", "bf16", "f32", "bf16")}
     _, rows, kern_ms = _profiled(lambda: fns["bf16"](x))
@@ -1836,13 +1971,15 @@ def phase_custom(dev, card, train_tmp):
     for fn in fns.values():
         fn(x)  # warm-up
     torch.cuda.synchronize()
-    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked)
+    counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
+                mel_kernel.stage_frames_resample)
     for c in counters:
         c.launches = 0
     outs = {k: fn(x) for k, fn in fns.items()}
     torch.cuda.synchronize()
     counts = {c.__name__: c.launches for c in counters}
-    assert all(v == 2 for v in counts.values()), counts
+    assert counts == {"fused_mel_power": 2, "greedy_suppress_blocked": 2,
+                      "stage_frames_resample": 0}, counts  # framed input
     assert all(torch.isfinite(o).all() for o in outs.values())
     ms = {k: time_ms(lambda k=k: fns[k](x), iters=5) for k in fns}
     log(f"[custom B={BATCH}] serving forward+NMS float32 {ms['f32']:.3f} ms, bf16 "
@@ -1950,7 +2087,7 @@ def phase_int8(dev, card, train_tmp):
     from audioyolo_tpu_torch.ops.int8 import int8_mm, int8_mm_plain
 
     counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
-                nms_kernel.greedy_suppress_unblocked)
+                nms_kernel.greedy_suppress_unblocked, mel_kernel.stage_frames_resample)
     checks = []  # (what, holds): every reading is logged before any is asserted
 
     # the int8 GEMM on the card at the shapes the int8 paths give it
@@ -2357,7 +2494,7 @@ def phase_train_postures(dev, card, train_tmp):
     from audioyolo_tpu_torch.train import METRIC_KEYS, TrainerPipeline
 
     counters = (mel_kernel.fused_mel_power, nms_kernel.greedy_suppress_blocked,
-                nms_kernel.greedy_suppress_unblocked)
+                nms_kernel.greedy_suppress_unblocked, mel_kernel.stage_frames_resample)
     checks = []  # (what, holds): every reading is logged before any is asserted
     res = {}
     cfg = _train_config(train_tmp)
@@ -2493,7 +2630,7 @@ def phase_train_postures(dev, card, train_tmp):
     # replay reads it from its tensor)
     cache_batches = [b for _ in range(GRAPH_STEPS // len(cached)) for b in cached]
     assert len(cache_batches) == GRAPH_STEPS
-    graph_launches = 0
+    graph_launches = {c.__name__: 0 for c in counters}
     keys = ("loss", "param_median", "param_p90", "param_l2")
     lr = float(tc["optimizer_config"].get("lr", 1e-3))
 
@@ -2526,8 +2663,10 @@ def phase_train_postures(dev, card, train_tmp):
             torch.cuda.synchronize()
         finally:
             torch.backends.cudnn.deterministic = False
-        graph_launches += launches()["fused_mel_power"]
-        run_launches = launches()["fused_mel_power"]
+        run = launches()
+        for name in graph_launches:
+            graph_launches[name] += run[name]
+        run_launches = run["fused_mel_power"]
         graphs = list(graph._graphs.values())
         per_replay_step = graphs[0].counts[0] / DISPATCH if len(graphs) == 1 else float("nan")
         runs["graph"] = (rows_graph, state(graph))
@@ -2584,8 +2723,7 @@ def phase_train_postures(dev, card, train_tmp):
             kernel1_events_eager=k1_e, kernel1_events_graph=k1_g,
             launches_per_replayed_step=per_replay_step)
         del eager, graph, dev_batches, last, runs
-    res["graph_launches"] = {"fused_mel_power": graph_launches, "greedy_suppress_blocked": 0,
-                             "greedy_suppress_unblocked": 0}
+    res["graph_launches"] = graph_launches
 
     # (d) data parallel: train_cli.run(data_parallel=True) in a one-rank nccl
     # group (torchrun's environment set here), the shipped bf16 config; then
@@ -3876,6 +4014,7 @@ def main() -> int:
     phase_build()
     card = phase_card()
     mel = phase_mel(dev, card)
+    resample = phase_resample(dev, card)
     nms = phase_nms(dev, card)
     counts = phase_serving(dev, card)
     tmp = tempfile.mkdtemp(prefix="ayt_smoke_")
@@ -3914,10 +4053,15 @@ def main() -> int:
     kernels = [
         dict(name="fused_mel_power", route="cuda", source=src + "fused_mel_power.cu",
              replaces="audioyolo_tpu/ops/pallas_frontend.py:64",
-             launches=counts["fused_mel_power"], train_launches=training["train_launches"],
+             launches=counts["fused_mel_power"],
+             train_launches=training["train_launches"]["fused_mel_power"],
              **paths("fused_mel_power"),
              **{k: mel["int16"][k] for k in ("max_abs_err", "ms", "stage_ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")}),
+        dict(name="stage_frames_resample", route="cuda", source=src + "fused_mel_power.cu",
+             replaces=None, launches=counts["stage_frames_resample"],
+             train_launches=training["train_launches"]["stage_frames_resample"],
+             **paths("stage_frames_resample"), **resample["int16"]),
         dict(name="greedy_suppress_blocked", route="cuda", source=src + "interval_nms.cu",
              replaces="audioyolo_tpu/ops/pallas_nms.py:172",
              launches=counts["greedy_suppress_blocked"], **paths("greedy_suppress_blocked"),

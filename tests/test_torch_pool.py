@@ -108,7 +108,7 @@ def pool(files):
         launches = p.warmup()
     _MODULE_WORKERS.extend(p._procs)
     assert launches == [{"fused_mel_power": 0, "greedy_suppress_blocked": 0,
-                         "greedy_suppress_unblocked": 0}] * 2
+                         "greedy_suppress_unblocked": 0, "stage_frames_resample": 0}] * 2
     yield p
     p.close()
 
